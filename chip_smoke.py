@@ -1,0 +1,547 @@
+#!/usr/bin/env python3
+"""Start-up proof of the PyTorch/CUDA port (``zkecdsa_tpu_torch``) on one
+NVIDIA GPU.
+
+Run from the repository root, on a machine with a card and ``nvcc``:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. print the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels from ``zkecdsa_tpu_torch/csrc`` (nvcc, sm_90a);
+3. hold every kernel against its plain PyTorch version on the card, on the
+   same inputs and exactly (integers: tolerance 0), at the shapes the
+   verifier gives it, and time both with CUDA events;
+4. the slice: ``BatchVerifier.verify`` on N=256 proofs at ring 2^12 (K
+   distinct host-proved proofs, tiled), one warm-up and three timed reps;
+   the kernel launch counts are read over the first timed rep.  Then one
+   proof's GK response is tampered: exactly that position must fail
+   (the per-row attribution path), and the host scalar verifier must agree;
+5. print the ``kernels`` JSON line, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Without CUDA (or without the package beside it) it exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import multiprocessing
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+N = 256  # proofs per verify batch (BatchVerifier.MAX_CHUNK)
+RING = 4096  # ring 2^12
+K = 8  # distinct host-proved proofs, tiled to N
+REPS = 3  # timed verify reps
+TAMPER_AT = 37  # batch position whose GK response f[0] is tampered
+SEED = 2024
+DEVICE = "cuda"
+S = 20  # verify rounds (Config.verify_rounds)
+FIELD_B = 65536  # field_mul rows per modulus
+EC_B = 16384  # ec_add point pairs per curve
+SMALL_MSM = (4, 1024)  # straus_msm [R, T] on both curves
+MSM = (16, 8192)  # the combined Tom-256 MSM's [R, T] at N=256, ring 2^12
+
+# Bounds (H100 SXM, NVIDIA data sheet, at the full 700 W):
+HBM_BYTES_PER_S = 3.35e12
+# No tensor-core path exists for 32-bit modular products; they run on the
+# INT32 pipes, 64 lanes per SM per clock, half the FP32 FMA lanes: half of
+# 67 TFLOP/s / 2 flops per FMA = 16.75e12 IMAD/s.
+IMAD_PER_S = 16.75e12
+# One 9-limb Montgomery product: 81 limb products for a*b, 81 for q*p and
+# 9 quotient digits; each 32x32->64-bit product is two IMADs (low, high).
+IMAD_PER_MODMUL = 2 * (81 + 81 + 9)
+# Modular multiplies per point operation (csrc/curve.cuh)
+MM_WEIER_ADD, MM_WEIER_DBL = 14, 13
+MM_EDW_ADD, MM_EDW_DBL, MM_EDW_MIXED = 11, 9, 9
+
+
+def _bound(modmuls: float, nbytes: float) -> tuple[float, str]:
+    """Least time in ms for the work: the larger of the bytes over the
+    memory rate and the IMADs over the INT32 rate."""
+    t_ops = modmuls * IMAD_PER_MODMUL / IMAD_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# host proving and host verifying, in worker processes
+# ---------------------------------------------------------------------------
+
+
+def _prove_one(job):
+    params_json, mh, sig, pub, which, ring, seed = job
+    from zkecdsa_tpu_torch.serde import read_json, write_json
+    from zkecdsa_tpu_torch.utils import rng
+    from zkecdsa_tpu_torch.zkp_attest_list import (
+        SignatureProofList,
+        SystemParametersList,
+        prove_signature_list,
+    )
+
+    params = read_json(SystemParametersList, params_json)
+    with rng.deterministic(seed):
+        proof = prove_signature_list(params, mh, sig, pub, which, ring)
+    return write_json(SignatureProofList, proof)
+
+
+def _host_verify(job):
+    params_json, mh, ring, proof_json, seed = job
+    from zkecdsa_tpu_torch.serde import read_json
+    from zkecdsa_tpu_torch.utils import rng
+    from zkecdsa_tpu_torch.zkp_attest_list import (
+        SignatureProofList,
+        SystemParametersList,
+        verify_signature_list,
+    )
+
+    params = read_json(SystemParametersList, params_json)
+    with rng.deterministic(seed):
+        return verify_signature_list(
+            params, mh, ring, read_json(SignatureProofList, proof_json)
+        )
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` back-to-back calls, after one
+    warm-up call, with CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _once_ms(fn):
+    """(result, ms) of one synchronised call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _max_err(a, b) -> int:
+    """Largest limb difference of two canonical limb tensors (uint32
+    patterns held in int32); 0 when they are equal."""
+    import torch
+
+    if tuple(a.shape) != tuple(b.shape):
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    da = a.to(torch.int64) & 0xFFFFFFFF
+    db = b.to(torch.int64) & 0xFFFFFFFF
+    return int((da - db).abs().max())
+
+
+def _exact(name: str, pairs) -> int:
+    err = max(_max_err(a, b) for a, b in pairs)
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max limb err {err})")
+    return err
+
+
+def _rescaled(ops, pts, n: int, rs, device):
+    """n projective representatives cycling through host points ``pts``,
+    each scaled by a random nonzero lambda: distinct coordinates for the
+    same group elements, made with host integers."""
+    p = ops.f.p
+    coords = []
+    for i in range(n):
+        pt = pts[i % len(pts)]
+        lam = int.from_bytes(rs.bytes(40), "little") % (p - 1) + 1
+        coords.extend(c * lam % p for c in ops._host_coords(pt))
+    return ops.f.pack(coords, device).reshape(n, ops.NCOORD, -1)
+
+
+def check_kernels(dev, dparams, rs, log) -> dict:
+    """Phase 3.  Returns {name: entry} without the launch counts."""
+    import numpy as np
+    import torch
+
+    from zkecdsa_tpu_torch.ops.curve_ops import (
+        comb_mixed,
+        ec_add,
+        p256_ops,
+        straus_msm,
+        to_affine,
+        tom_ops,
+    )
+    from zkecdsa_tpu_torch.ops.field import (
+        NLIMBS,
+        P256_N,
+        P256_P,
+        TOM_N,
+        TOM_P,
+        WAR_P,
+        field_mul,
+        field_mul_plain,
+        ring_fold,
+    )
+
+    entries = {}
+    C_P, C_T = p256_ops.NCOORD, tom_ops.NCOORD
+    pb = NLIMBS * 4  # bytes per field element
+
+    # -- field_mul, plain form: FIELD_B rows per modulus, edge rows first --
+    B = FIELD_B
+    for f in (P256_P, P256_N, TOM_P, TOM_N, WAR_P):
+        p = f.p
+        edge_a = [0, 1, p - 1, p - 1, 1, 0, p - 2]
+        edge_b = [p - 1, p - 1, p - 1, 0, 1, 0, p - 1]
+        ra = [int.from_bytes(rs.bytes(40), "little") % p for _ in range(B - len(edge_a))]
+        rb = [int.from_bytes(rs.bytes(40), "little") % p for _ in range(B - len(edge_b))]
+        ai, bi = edge_a + ra, edge_b + rb
+        a, b = f.pack(ai, dev), f.pack(bi, dev)
+        got = field_mul(f, a, b)
+        plain, plain_ms = _once_ms(lambda: field_mul_plain(f, a, b))
+        _exact(f"field_mul[{f.name}]", [(got, plain)])
+        want = [x * y % p for x, y in zip(ai[:512], bi[:512])]
+        if f.unpack(got[:512]) != want:
+            raise AssertionError(f"field_mul[{f.name}] disagrees with Python integers")
+        ms = _cuda_ms(lambda: field_mul(f, a, b), 10)
+        log(f"field_mul {f.name:7s} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
+
+    # -- field_mul, pair form, through ring_fold at the verifier's shape --
+    n = RING.bit_length() - 1
+    vals = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") for _ in range(RING)], dev)
+    fs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") for _ in range(N * n)], dev).reshape(N, n, -1)
+    xfs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") for _ in range(N * n)], dev).reshape(N, n, -1)
+    got = ring_fold(vals, fs, xfs)
+    plain, plain_ms = _once_ms(lambda: ring_fold(vals, fs, xfs, mul=field_mul_plain))
+    err = _exact("ring_fold", [(got, plain)])
+    # row 0 against Python integers
+    q = TOM_N.p
+    v_i, f_i, x_i = TOM_N.unpack(vals), TOM_N.unpack(fs[0]), TOM_N.unpack(xfs[0])
+    tot = 0
+    for k, v in enumerate(v_i):
+        for j in range(n):
+            v = v * (f_i[j] if (k >> j) & 1 else x_i[j]) % q
+        tot = (tot + v) % q
+    if TOM_N.unpack(got[0]) != [tot]:
+        raise AssertionError("ring_fold disagrees with Python integers")
+    ms = _cuda_ms(lambda: ring_fold(vals, fs, xfs), 10)
+    bound, by = _bound(2 * N * (RING - 1), (RING + 2 * N * n + N) * pb)
+    entries["field_mul"] = dict(
+        call=f"ring_fold N={N} ring={RING}: {n} pair-form launches",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    )
+    log(f"field_mul pair form (ring_fold N={N}, ring {RING}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
+
+    # -- ec_add: EC_B pairs per curve with identity+P, P+P, P+(-P) rows -----
+    from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
+
+    B = EC_B
+    samples = {}
+    for ops, g in ((p256_ops, p256), (tom_ops, tomEdwards256)):
+        G = g.generator()
+        pts = [G.mul(g.new_scalar(int.from_bytes(rs.bytes(32), "little") % g.order)) for _ in range(64)]
+        P = _rescaled(ops, pts, B, rs, dev)
+        Q = _rescaled(ops, pts[::-1], B, rs, dev)
+        ident = ops.identity((), dev)
+        Q[0] = P[0]  # P + P, same coordinates
+        Q[1] = _rescaled(ops, [pts[1 % len(pts)]], 1, rs, dev)[0]  # P + P, other ones
+        Q[2] = ops.neg(P[2])  # P + (-P)
+        P[3] = ident  # identity + P
+        P[4], Q[4] = ident, ident  # identity + identity
+        got = ec_add(ops, P, Q)
+        plain, plain_ms = _once_ms(lambda: ops.add(P, Q))
+        err = _exact(f"ec_add[{g.name}]", [(got, plain)])
+        host = ops.unpack_points(got[:8])
+        hp, hq = ops.unpack_points(P[:8]), ops.unpack_points(Q[:8])
+        if not all(r.eq(x.add(y)) for r, x, y in zip(host, hp, hq)):
+            raise AssertionError(f"ec_add[{g.name}] disagrees with the host curve")
+        if not host[2].is_identity():
+            raise AssertionError(f"ec_add[{g.name}]: P + (-P) is not the identity")
+        samples[g.name] = (P, got)
+        ms = _cuda_ms(lambda: ec_add(ops, P, Q), 10)
+        log(f"ec_add {g.name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
+    # the verifier's shape: vphase T1 = T0 + Q over [N, S] P-256 points
+    P, Q = samples["p256"][0][: N * S], samples["p256"][1][: N * S]
+    got = ec_add(p256_ops, P, Q)
+    plain, plain_ms = _once_ms(lambda: p256_ops.add(P, Q))
+    err = _exact("ec_add[vphase]", [(got, plain)])
+    ms = _cuda_ms(lambda: ec_add(p256_ops, P, Q), 20)
+    bound, by = _bound(MM_WEIER_ADD * N * S, 3 * N * S * C_P * pb)
+    entries["ec_add"] = dict(
+        call=f"P-256 [{N}, {S}] (vphase T1 = T0 + Q)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    )
+    log(f"ec_add p256 [{N},{S}]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
+
+    # -- to_affine: the verifier's [N, S, 2] batches on both curves -------
+    for ops, name in ((tom_ops, "tomEdwards256"), (p256_ops, "p256")):
+        pts = samples[name][1][: N * S * 2].reshape(N, S, 2, ops.NCOORD, -1)
+        got = to_affine(ops, pts)
+        plain, plain_ms = _once_ms(lambda: ops.to_affine(pts))
+        err = _exact(f"to_affine[{name}]", [(got[0], plain[0]), (got[1], plain[1]),
+                                            (got[2].to(torch.int32), plain[2].to(torch.int32))])
+        ms = _cuda_ms(lambda: to_affine(ops, pts), 10)
+        log(f"to_affine {name} [{N},{S},2]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
+    if not bool(got[2].reshape(-1)[4]):  # identity + identity row
+        raise AssertionError("to_affine: the identity is not flagged")
+    f = p256_ops.f
+    inv_mm = (f.p - 2).bit_length() - 1 + bin(f.p - 2).count("1") - 1
+    nb = N * S * 2
+    bound, by = _bound((inv_mm + 2) * nb, nb * (C_P * pb + 2 * pb + 1))
+    entries["to_affine"] = dict(
+        call=f"P-256 [{N}, {S}, 2] (vphase)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    )
+
+    # -- straus_msm: SMALL_MSM on both curves, then the combined Tom-256
+    #    MSM's shape ------------------------------------------------------
+    def msm_case(ops, name, R, T, src):
+        pts = src[: R * T].reshape(R, T, ops.NCOORD, -1)
+        dig = torch.from_numpy(rs.randint(0, 16, size=(R, T, 64)).astype(np.uint8)).to(dev)
+        dig[:, :3] = 0  # zero scalars: identity terms, as the padding lanes
+        got = straus_msm(ops, pts, dig)
+        plain, plain_ms = _once_ms(lambda: ops.msm_shared(pts, dig))
+        # the kernel adds in another order: compare the affine points
+        ga, pa = ops.to_affine(got), ops.to_affine(plain)
+        err = _exact(f"straus_msm[{name} {R}x{T}]", [(ga[0], pa[0]), (ga[1], pa[1]),
+                                                     (ga[2].to(torch.int32), pa[2].to(torch.int32))])
+        return pts, dig, err, plain_ms
+
+    big_src = {}
+    for ops, name in ((p256_ops, "p256"), (tom_ops, "tomEdwards256")):
+        P = samples[name][0]
+        src = torch.cat([P] * -(-MSM[0] * MSM[1] // P.shape[0]))
+        big_src[name] = src
+        _, _, _, plain_ms = msm_case(ops, name, *SMALL_MSM, src)
+        log(f"straus_msm {name} {list(SMALL_MSM)}: plain {plain_ms:.1f} ms, exact")
+    R, T = MSM
+    pts, dig, err, plain_ms = msm_case(tom_ops, "tomEdwards256", R, T, big_src["tomEdwards256"])
+    ms = _cuda_ms(lambda: straus_msm(tom_ops, pts, dig), 3)
+    from zkecdsa_tpu_torch.ops.curve_ops import msm_chunk
+
+    nch = -(-T // msm_chunk(R, T))
+    adds = R * T * (14 + 64) + R * (nch - 1)
+    dbls = R * nch * 256
+    bound, by = _bound(
+        MM_EDW_ADD * adds + MM_EDW_DBL * dbls, R * T * (C_T * pb + 64) + R * C_T * pb
+    )
+    entries["straus_msm"] = dict(
+        call=f"Tom-256 [{R}, {T}] (combined identity MSM)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    )
+    log(f"straus_msm tomEdwards256 [{R}, {T}]: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, exact")
+
+    # -- comb_mixed: the vphase commits, [N, S, 2] rows -------------------
+    tabs = torch.cat([dparams["g_t8"], dparams["h_t8"]], dim=0)
+    d8 = torch.from_numpy(rs.randint(0, 256, size=(N, S, 2, 64)).astype(np.uint8)).to(dev)
+    d8[0, 0, 0] = 0  # g*0 + h*0: the identity
+    got = comb_mixed(tabs, d8)
+    plain, plain_ms = _once_ms(lambda: tom_ops.mul_comb_mixed(tabs, d8))
+    err = _exact("comb_mixed", [(got, plain)])
+    if not bool(tom_ops.is_identity(got[0, 0, 0])):
+        raise AssertionError("comb_mixed: zero digits do not give the identity")
+    ms = _cuda_ms(lambda: comb_mixed(tabs, d8), 10)
+    rows = N * S * 2
+    bound, by = _bound(MM_EDW_MIXED * 64 * rows, tabs.numel() * 4 + d8.numel() + rows * C_T * pb)
+    entries["comb_mixed"] = dict(
+        call=f"Tom-256 g*v + h*r, [{N}, {S}, 2] rows (vphase commits)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    )
+    log(f"comb_mixed [{N},{S},2]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    smi = _card()
+    print(smi, flush=True)
+
+    import numpy as np
+
+    from zkecdsa_tpu_torch import _build, ecdsa
+    from zkecdsa_tpu_torch.ops.curve_ops import comb_mixed, ec_add, straus_msm, to_affine
+    from zkecdsa_tpu_torch.ops.field import field_mul
+    from zkecdsa_tpu_torch.protocol.batch import device_params_for
+    from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
+    from zkecdsa_tpu_torch.serde import read_json, write_json
+    from zkecdsa_tpu_torch.utils import rng
+    from zkecdsa_tpu_torch.utils.profiling import StageTimer
+    from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList, generate_params_list
+
+    def log(msg: str) -> None:
+        print(msg, flush=True)
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    # -- phase 2: build ------------------------------------------------------
+    log(f"build: {_build.build():.1f} s (nvcc, sm_90a, {_build.LIB_PATH.name})")
+    _build.load()
+
+    # -- inputs of the slice, made from the seed; host proving starts in
+    #    worker processes while the kernels are checked ----------------------
+    with rng.deterministic(SEED):
+        params = generate_params_list()
+        kps = [ecdsa.generate_keypair() for _ in range(K)]
+    pubs = [ecdsa.export_public_raw(kp) for kp in kps]
+    ring = [ecdsa.key_to_int(p) for p in pubs] + list(range(1000, 1000 + RING - K))
+    msgs = [f"chip smoke message {i}".encode() for i in range(K)]
+    mhs = [hashlib.sha256(m).digest() for m in msgs]
+    with rng.deterministic(SEED + 1):
+        sigs = [ecdsa.sign(kp, m) for kp, m in zip(kps, msgs)]
+    params_json = write_json(type(params), params)
+    ctx = multiprocessing.get_context("spawn")
+    workers = min(K, os.cpu_count() or 1)
+    with ctx.Pool(workers) as pool:
+        t0 = time.perf_counter()
+        proving = pool.map_async(
+            _prove_one,
+            [(params_json, mhs[i], sigs[i], pubs[i], i, ring, SEED + 100 + i) for i in range(K)],
+        )
+
+        # -- phase 3: kernels against their plain versions -----------------
+        dparams = device_params_for(params, dev).tabs()
+        rs = np.random.RandomState(SEED)
+        entries = check_kernels(dev, dparams, rs, log)
+
+        proof_jsons = proving.get(timeout=900)
+        log(f"host proving: {K} proofs at ring {RING} in {time.perf_counter() - t0:.1f} s "
+            f"({workers} processes)")
+
+        # -- phase 4: the slice ---------------------------------------------
+        distinct = [read_json(SignatureProofList, j) for j in proof_jsons]
+        proofs = [distinct[i % K] for i in range(N)]
+        batch_mhs = [mhs[i % K] for i in range(N)]
+        bv = BatchVerifier(params, dev)
+        t0 = time.perf_counter()
+        ok = bv.verify(batch_mhs, ring, proofs)
+        torch.cuda.synchronize()
+        log(f"verify warm-up: {time.perf_counter() - t0:.2f} s")
+        if not all(ok):
+            raise AssertionError(f"warm-up verify rejected honest proofs: {ok.count(False)} False")
+
+        counters = (field_mul, ec_add, to_affine, straus_msm, comb_mixed)
+        timer = StageTimer(dev)
+        walls = []
+        launches = {}
+        for rep in range(REPS):
+            if rep == 0:
+                for fn in counters:
+                    fn.launches = 0
+            t0 = time.perf_counter()
+            ok = bv.verify(batch_mhs, ring, proofs, timer=timer)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches = {fn.__name__: fn.launches for fn in counters}
+            if not all(ok):
+                raise AssertionError(f"verify rep {rep} rejected honest proofs")
+        if timer.counts.get("msm.combine_host") != REPS or timer.counts.get("msm.pack_host") != REPS:
+            raise AssertionError(
+                f"expected the combined Tom-256 MSM and the per-row P-256 MSM once a rep: {timer.counts}"
+            )
+        wall = statistics.median(walls)
+        log(f"slice: BatchVerifier.verify N={N} ring={RING}: median {wall:.3f} s of "
+            f"{[round(w, 3) for w in walls]} -> {N / wall:.2f} proofs/s on {smi}")
+        log("stages over the timed reps (seconds summed over reps):\n" + timer.report())
+        log("launches in one verify: " + json.dumps(launches))
+        missing = [k for k, v in launches.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+        # tampered GK response at one position: only it fails, through the
+        # per-row attribution path
+        bad = read_json(SignatureProofList, write_json(SignatureProofList, proofs[TAMPER_AT]))
+        bad.membershipProof.f[0] = bad.membershipProof.f[1]
+        tampered = list(proofs)
+        tampered[TAMPER_AT] = bad
+        ttimer = StageTimer(dev)
+        t0 = time.perf_counter()
+        verdict = bv.verify(batch_mhs, ring, tampered, timer=ttimer)
+        log(f"tampered batch: {time.perf_counter() - t0:.2f} s, False at "
+            f"{[i for i, v in enumerate(verdict) if not v]}")
+        if verdict != [i != TAMPER_AT for i in range(N)]:
+            raise AssertionError("tampered batch: wrong verdicts")
+        if ttimer.counts.get("msm.pack_host") != 2:
+            raise AssertionError(f"the attribution path did not run: {ttimer.counts}")
+
+        # the host scalar verifier agrees on the distinct proofs and the
+        # tampered one
+        jobs = [(params_json, mhs[i], ring, proof_jsons[i], SEED + 200 + i) for i in range(K)]
+        jobs.append((params_json, mhs[TAMPER_AT % K], ring,
+                     write_json(SignatureProofList, bad), SEED + 300))
+        host = pool.map(_host_verify, jobs)
+        pool.close()
+        pool.join()
+    if host != [True] * K + [False]:
+        raise AssertionError(f"host scalar verifier disagrees: {host}")
+    log(f"host scalar verify_signature_list agrees: {host}")
+
+    # -- phase 5: the kernels line and the result -----------------------------
+    meta = {
+        "field_mul": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/ops/pallas_field.py:183"),
+        "ec_add": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/pallas_field.py:214"),
+        "to_affine": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:459"),
+        "straus_msm": ("zkecdsa_tpu_torch/csrc/msm.cu", "zkecdsa_tpu/ops/curve_ops.py:393"),
+        "comb_mixed": ("zkecdsa_tpu_torch/csrc/comb.cu", "zkecdsa_tpu/ops/curve_ops.py:731"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        e = entries[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": None, "call": e["call"],
+        })
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels, "proofs_per_s": N / wall, "verify_s": wall}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,172 @@
+"""The port's curve layer (``zkecdsa_tpu_torch.ops.curve_ops``) against the
+JAX package's ``p256_ops``/``tom_ops``, its ``pallas_ec_add`` (interpret
+mode) and the host curves.
+
+The port's plain versions evaluate the reference's formulas operation for
+operation, so wherever both take the same sequence of point operations the
+canonical projective coordinates are the same integers; the comparisons
+are exact.  tests/test_torch_kernels.py and chip_smoke.py hold the kernels
+against the plain versions on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zkecdsa_tpu.curves.instances import tomEdwards256 as jtom
+from zkecdsa_tpu.ops import curve_ops as jcurve
+from zkecdsa_tpu.ops.pallas_field import pallas_ec_add
+from zkecdsa_tpu.protocol.batch import device_params_for as jax_device_params_for
+from zkecdsa_tpu.serde import write_json as jax_write_json
+from zkecdsa_tpu.utils import rng as jrng
+from zkecdsa_tpu.zkp_attest_list import SystemParametersList as JaxParams
+from zkecdsa_tpu.zkp_attest_list import generate_params_list as jax_generate_params
+from zkecdsa_tpu_torch import carry
+from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
+from zkecdsa_tpu_torch.curves.multimult import MultiMult
+from zkecdsa_tpu_torch.ops import curve_ops as tcurve
+from zkecdsa_tpu_torch.protocol.batch import DeviceParams
+from zkecdsa_tpu_torch.utils import rng as trng
+
+# curve name -> (port ops, reference ops, port host group)
+CURVES = {
+    "p256": (tcurve.p256_ops, jcurve.p256_ops, p256),
+    "tomEdwards256": (tcurve.tom_ops, jcurve.tom_ops, tomEdwards256),
+}
+
+
+@pytest.fixture(autouse=True)
+def port_rng():
+    with trng.deterministic(0xC0FFEE):
+        yield
+
+
+@pytest.fixture(scope="module")
+def params():
+    """One parameter set, made by the reference and carried across on the
+    wire: (reference params, port params, reference tables, port tables)."""
+    with jrng.deterministic(21):
+        jparams = jax_generate_params()
+    tparams = carry.params_from_jax(jax_write_json(JaxParams, jparams))
+    jtabs = jax_device_params_for(jparams).tabs()
+    ttabs = DeviceParams(tparams, "cpu").tabs()
+    return jparams, tparams, jtabs, ttabs
+
+
+def _points(g, rs, n):
+    G = g.generator()
+    return [G.mul(g.new_scalar(int.from_bytes(rs.bytes(32), "little") % g.order)) for _ in range(n)]
+
+
+def _edge_pairs(g, rs):
+    """Random pairs, then identity + P, P + P, P + (-P), identity + identity."""
+    P = _points(g, rs, 5)
+    Q = _points(g, rs, 5)
+    ident = g.identity()
+    return P + [ident, P[0], P[1], ident], Q + [P[2], P[0], P[1].neg(), ident]
+
+
+def _coords(jops, arr) -> list[list[int]]:
+    """Reference digit array [B, C, L] -> per-point canonical coordinates."""
+    a = np.asarray(arr)
+    cols = [jops.f.unpack(a[:, k]) for k in range(a.shape[1])]
+    return [list(c) for c in zip(*cols)]
+
+
+def _tcoords(tops, t) -> list[list[int]]:
+    cols = [tops.f.unpack(t[:, k]) for k in range(t.shape[1])]
+    return [list(c) for c in zip(*cols)]
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_group_law_vs_reference(name):
+    tops, jops, g = CURVES[name]
+    rs = np.random.RandomState(31 + len(name))
+    P_h, Q_h = _edge_pairs(g, rs)
+    P, Q = tops.pack_points(P_h), tops.pack_points(Q_h)
+    jP, jQ = jnp.asarray(jops.pack_points(P_h)), jnp.asarray(jops.pack_points(Q_h))
+    B = P.shape[0]
+
+    got = tcurve.ec_add(tops, P, Q)  # CPU tensor: the plain version
+    want = _coords(jops, jops.add(jP, jQ))
+    assert _tcoords(tops, got) == want
+    assert _coords(jops, pallas_ec_add(jops, block=B, interpret=True)(jP, jQ)) == want
+    for r, p, q in zip(tops.unpack_points(got), P_h, Q_h):
+        assert r.eq(p.add(q))
+    assert _tcoords(tops, tops.dbl(P)) == _coords(jops, jops.dbl(jP))
+
+    x, y, inf = tcurve.to_affine(tops, got)
+    jx, jy, jinf = jops.to_affine(jops.add(jP, jQ))
+    assert tops.f.unpack(x) == jops.f.unpack(jx)
+    assert tops.f.unpack(y) == jops.f.unpack(jy)
+    assert inf.tolist() == np.asarray(jinf).tolist()
+    for i, pt in enumerate(tops.unpack_points(got)):
+        aff = pt.to_affine()
+        assert (aff is None) == bool(inf[i])
+        if aff is not None:
+            assert (tops.f.unpack(x[i : i + 1])[0], tops.f.unpack(y[i : i + 1])[0]) == aff
+    ident = tops.is_identity(got).tolist()
+    assert ident == np.asarray(jops.is_identity(jops.add(jP, jQ))).tolist()
+    assert ident[-2:] == [True, True]  # P + (-P), identity + identity
+    assert tcurve.sum_reduce(tops, got[:0]).tolist() == tops.identity().tolist()
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_straus_msm_vs_msm_shared_and_host(name):
+    tops, jops, g = CURVES[name]
+    rs = np.random.RandomState(41)
+    R, T = 2, 5
+    pts = [_points(g, rs, T) for _ in range(R)]
+    scs = [[int.from_bytes(rs.bytes(32), "little") % g.order for _ in range(T)] for _ in range(R)]
+    scs[1][0] = 0  # a zero scalar: an identity term
+    arr = torch.stack([tops.pack_points(r) for r in pts])
+    dig = torch.from_numpy(tcurve.nibble_digits(sum(scs, [])).astype(np.uint8)).reshape(R, T, 64)
+    got = tcurve.straus_msm(tops, arr, dig)  # CPU tensor: ops.msm_shared
+    ref = jops.msm_shared(
+        jnp.asarray(np.stack([jops.pack_points(r) for r in pts])),
+        jnp.asarray(jcurve.nibble_digits(sum(scs, [])).reshape(R, T, 64)),
+    )
+    assert _tcoords(tops, got) == _coords(jops, ref)
+    for r in range(R):
+        multi = MultiMult(g)
+        for p, s in zip(pts[r], scs[r]):
+            multi.insert(p, g.new_scalar(s))
+        assert tops.unpack_points(got[r : r + 1])[0].eq(multi.evaluate())
+
+
+def test_comb_mixed_vs_double_mul_comb_mixed(params):
+    _, _, jtabs, ttabs = params
+    rs = np.random.RandomState(51)
+    B = 6
+    v = [int.from_bytes(rs.bytes(32), "little") % jtom.order for _ in range(B)]
+    r = [int.from_bytes(rs.bytes(32), "little") % jtom.order for _ in range(B)]
+    v[0], r[0] = 0, 0  # zero digits: the identity
+    d8 = torch.from_numpy(
+        np.concatenate([tcurve.byte_digits(v), tcurve.byte_digits(r)], axis=1).astype(np.uint8)
+    )
+    got = tcurve.comb_mixed(torch.cat([ttabs["g_t8"], ttabs["h_t8"]]), d8)
+    ref = jcurve.tom_ops.double_mul_comb_mixed(
+        jtabs["g_t8"], jnp.asarray(jcurve.byte_digits(v)),
+        jtabs["h_t8"], jnp.asarray(jcurve.byte_digits(r)),
+    )
+    assert _tcoords(tcurve.tom_ops, got) == _coords(jcurve.tom_ops, ref)
+    assert bool(tcurve.tom_ops.is_identity(got[0]))
+    add_mixed = tcurve.tom_ops.add_mixed(got, ttabs["g_t8"][3, 7].expand(B, 5, -1))
+    ref_mixed = jcurve.tom_ops.add_mixed(ref, jtabs["g_t8"][3, 7])
+    assert _tcoords(tcurve.tom_ops, add_mixed) == _coords(jcurve.tom_ops, ref_mixed)
+
+
+def test_tables_carry_across(params):
+    """The reference's device tables, carried to canonical limbs, equal the
+    tables the port builds with its host arithmetic."""
+    jparams, tparams, jtabs, ttabs = params
+    carried = carry.tables_from_jax({k: np.asarray(v) for k, v in jtabs.items()})
+    assert set(ttabs) <= set(carried)
+    for key, t in ttabs.items():
+        assert carried[key].dtype == torch.int32
+        assert torch.equal(carried[key], t), key
+    assert tparams.proof_group.g.eq(
+        tcurve.tom_ops.unpack_points(carried["g_t"][1:2])[0]
+    )
+

@@ -1,0 +1,192 @@
+"""The port's field layer (``zkecdsa_tpu_torch.ops.field``) against Python
+integers and the JAX package's ``F32Field`` and ``pallas_mul``.
+
+Everything here is modular arithmetic on canonical integers, so every
+comparison is exact.  On the CPU the kernel wrappers take their plain
+PyTorch versions; tests/test_torch_kernels.py and chip_smoke.py hold the
+kernels against those on the card.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zkecdsa_tpu.ops import curve_ops as jcurve
+from zkecdsa_tpu.ops import f32field as jf
+from zkecdsa_tpu.ops.pallas_field import pallas_mul
+from zkecdsa_tpu.protocol.batch_gk import gk_recombine_device
+from zkecdsa_tpu_torch.ops import curve_ops as tcurve
+from zkecdsa_tpu_torch.ops import field as tf
+from zkecdsa_tpu_torch.utils import rng as trng
+
+CSRC = Path(tf.__file__).resolve().parents[1] / "csrc"
+
+# (port field, reference field) pairs, by name
+FIELDS = {
+    "p256.p": (tf.P256_P, jf.P256_P),
+    "p256.n": (tf.P256_N, jf.P256_N),
+    "tom.p": (tf.TOM_P, jf.TOM_P),
+    "tom.n": (tf.TOM_N, jf.TOM_N),
+    "war.p": (tf.WAR_P, jf.WAR_P),
+}
+
+
+@pytest.fixture(autouse=True)
+def port_rng():
+    with trng.deterministic(0xC0FFEE):
+        yield
+
+
+def _values(p: int, rs: np.random.RandomState, n: int) -> list[int]:
+    """Edge values (0, 1, p-1, p-2, values just under 2^bits) then random."""
+    bits = p.bit_length()
+    edge = [0, 1, p - 1, p - 2, ((1 << bits) - 1) % p, (1 << (bits - 1)) % p, p // 2]
+    return edge + [int.from_bytes(rs.bytes(40), "little") % p for _ in range(n - len(edge))]
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+def test_plain_field_vs_ints_and_f32field(name):
+    f, jfield = FIELDS[name]
+    p = f.p
+    rs = np.random.RandomState(len(name))
+    a_i = _values(p, rs, 48)
+    b_i = list(reversed(_values(p, rs, 48)))
+    a, b = f.pack(a_i), f.pack(b_i)
+    assert f.unpack(a) == a_i
+    ja, jb = jnp.asarray(jfield.pack(a_i)), jnp.asarray(jfield.pack(b_i))
+    cases = {
+        "mul": (f.mul(a, b), jfield.mul(ja, jb), [x * y % p for x, y in zip(a_i, b_i)]),
+        "add": (f.add(a, b), jfield.add(ja, jb), [(x + y) % p for x, y in zip(a_i, b_i)]),
+        "sub": (f.sub(a, b), jfield.sub(ja, jb), [(x - y) % p for x, y in zip(a_i, b_i)]),
+        "neg": (f.neg(a), jfield.neg(ja), [-x % p for x in a_i]),
+    }
+    for op, (got, jgot, want) in cases.items():
+        assert got.dtype == torch.int32 and got.shape == a.shape, op
+        assert f.unpack(got) == want, op
+        assert jfield.unpack_canonical(jfield.canon(jgot)) == want, op
+    inv = f.unpack(f.inv(a[:12]))
+    assert inv == [pow(x, p - 2, p) for x in a_i[:12]]
+    assert jfield.unpack(jfield.inv(ja[:12])) == inv
+    assert f.is_zero(a).tolist() == [x == 0 for x in a_i]
+    assert f.equal(a, f.pack(a_i)).all()
+    assert not f.equal(a, b).any()
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+def test_working_form_chains_stay_exact(name):
+    """Long chains of lazy sums and products in the plain working form
+    (what the curve formulas do) end on the same canonical integers."""
+    f, _ = FIELDS[name]
+    p = f.p
+    rs = np.random.RandomState(7 + len(name))
+    a_i, b_i = _values(p, rs, 32), list(reversed(_values(p, rs, 32)))
+    w, v = f.to_work(f.pack(a_i)), f.to_work(f.pack(b_i))
+    acc, ref = w, list(a_i)
+    for _ in range(12):
+        acc = f.wsmall(f.wsub(f.wmul(acc, f.wadd_lazy(w, v)), f.wneg(v)), 3)
+        ref = [3 * (r * (x + y) + y) % p for r, x, y in zip(ref, a_i, b_i)]
+    assert f.unpack(f.canon(acc)) == ref
+
+
+@pytest.mark.parametrize("name", ["p256.p", "tom.p"])
+def test_field_mul_wrapper_vs_pallas_mul(name):
+    """The field_mul wrapper (plain version on CPU tensors) against the
+    reference's Pallas kernel in interpret mode, plus the pair form."""
+    f, jfield = FIELDS[name]
+    p = f.p
+    B = 16
+    rs = np.random.RandomState(11)
+    a_i, b_i = _values(p, rs, B), [int.from_bytes(rs.bytes(40), "little") % p for _ in range(B)]
+    got = tf.field_mul(f, f.pack(a_i), f.pack(b_i))
+    ref = pallas_mul(jfield, block=B, interpret=True)(
+        jnp.asarray(jfield.pack(a_i)), jnp.asarray(jfield.pack(b_i))
+    )
+    assert f.unpack(got) == jfield.unpack(ref) == [x * y % p for x, y in zip(a_i, b_i)]
+    d_i, e_i = b_i[::-1], a_i[::-1]
+    pair = tf.field_mul(f, f.pack(a_i), f.pack(b_i), f.pack(d_i), f.pack(e_i))
+    assert f.unpack(pair) == [(a * b + d * e) % p for a, b, d, e in zip(a_i, b_i, d_i, e_i)]
+
+
+@pytest.mark.parametrize("ring", [8, 16])
+def test_ring_fold_vs_gk_recombine_device(ring):
+    N, n = 2, ring.bit_length() - 1
+    q = tf.TOM_N.p
+    rs = np.random.RandomState(ring)
+    vals = [int.from_bytes(rs.bytes(32), "little") % q for _ in range(ring)]
+    fs = [[int.from_bytes(rs.bytes(32), "little") % q for _ in range(n)] for _ in range(N)]
+    xs = [int.from_bytes(rs.bytes(32), "little") % q for _ in range(N)]
+    xf = [[(xs[i] - fs[i][j]) % q for j in range(n)] for i in range(N)]
+    flat = lambda rows: [v for r in rows for v in r]  # noqa: E731
+    got = tf.ring_fold(
+        tf.TOM_N.pack(vals),
+        tf.TOM_N.pack(flat(fs)).reshape(N, n, -1),
+        tf.TOM_N.pack(flat(xf)).reshape(N, n, -1),
+    )
+    fo = jf.TOM_N
+    ref = gk_recombine_device(
+        jnp.asarray(fo.pack(flat(fs))).reshape(N, n, -1),
+        jnp.asarray(fo.pack(flat(xf))).reshape(N, n, -1),
+        jnp.asarray(fo.pack(vals)),
+    )
+    want = []
+    for i in range(N):
+        tot = 0
+        for k, v in enumerate(vals):
+            for j in range(n):
+                v = v * (fs[i][j] if (k >> j) & 1 else xf[i][j]) % q
+            tot += v
+        want.append(tot % q)
+    assert tf.TOM_N.unpack(got) == fo.unpack_canonical(ref) == want
+
+
+def test_digit_helpers_match_reference():
+    rs = np.random.RandomState(5)
+    scs = [0, 1, (1 << 256) - 1] + [int.from_bytes(rs.bytes(32), "big") for _ in range(13)]
+    np.testing.assert_array_equal(tcurve.nibble_digits(scs), jcurve.nibble_digits(scs))
+    np.testing.assert_array_equal(tcurve.byte_digits(scs), jcurve.byte_digits(scs))
+    # canonical limbs are their own LSB-first byte digits
+    f = tf.TOM_N
+    vals = [s % f.p for s in scs]
+    np.testing.assert_array_equal(
+        tf.bytes_le(f.pack(vals)).numpy().astype(np.int32), jcurve.byte_digits(vals)
+    )
+
+
+def _hex_rows(text: str) -> list[list[int]]:
+    return [
+        [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", row)]
+        for row in re.findall(r"\{(0x[0-9a-fu, x]+)\}", text)
+    ]
+
+
+def test_kernel_constants_match_python():
+    """The moduli and curve coefficients compiled into csrc/*.cuh."""
+    R = 1 << 288
+    limbs = lambda x: [(x >> (32 * i)) & 0xFFFFFFFF for i in range(tf.NLIMBS)]  # noqa: E731
+    field_h = (CSRC / "field.cuh").read_text()
+    mods = field_h[field_h.index("ZK_MODS[5]") :]
+    rows = _hex_rows(mods)
+    pinvs = [int(h, 16) for h in re.findall(r"\},\s*0x([0-9a-f]{8})u\}", mods)]
+    by_id = sorted((f.mod_id, f) for f, _ in FIELDS.values())
+    assert [i for i, _ in by_id] == list(range(5))
+    for (mod_id, f), pinv in zip(by_id, pinvs):
+        assert re.search(rf"#define ZK_{f.name.replace('.', '_').upper()} {mod_id}\b", field_h)
+        p = f.p
+        assert rows[3 * mod_id] == limbs(p)
+        assert rows[3 * mod_id + 1] == limbs(R * R % p)
+        assert rows[3 * mod_id + 2] == limbs(R % p)
+        assert pinv == (-pow(p, -1, 1 << 32)) % (1 << 32)
+    curve_h = (CSRC / "curve.cuh").read_text()
+    coef = _hex_rows(curve_h[curve_h.index("ZK_COEF[4]") :])[:4]
+    p256, war, tom = tcurve.p256_ops, tcurve.war_ops, tcurve.tom_ops
+    want = [
+        (p256.b, p256.f.p), (war.b, war.f.p), (tom.a, tom.f.p), (tom.d, tom.f.p),
+    ]
+    assert coef == [limbs(v * R % p) for v, p in want]
+    for ops, cid in ((p256, "P256"), (war, "WAR"), (tom, "TOM")):
+        assert re.search(rf"#define ZK_CURVE_{cid} {ops.curve_id}\b", curve_h)
+

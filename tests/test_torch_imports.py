@@ -1,0 +1,99 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points run on CUDA unless told otherwise, and a tensor that is not on
+the CPU never falls back to a plain version."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from zkecdsa_tpu_torch import _build
+from zkecdsa_tpu_torch.ops import curve_ops as tcurve
+from zkecdsa_tpu_torch.ops import field as tf
+from zkecdsa_tpu_torch.protocol import batch_verify as tbv
+from zkecdsa_tpu_torch.utils import rng as trng
+from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# A tiny verify (4 exp rounds, 2 checked, ring of 2) in a fresh interpreter,
+# then the list of every loaded module that belongs to JAX or the JAX
+# package.
+_PROBE = r"""
+import hashlib, sys
+import chip_smoke  # noqa: F401  the chip script's own imports
+from zkecdsa_tpu_torch import ecdsa
+from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
+from zkecdsa_tpu_torch.utils import rng
+from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list, prove_signature_list
+with rng.deterministic(3):
+    params = generate_params_list(sec_level=4)
+    kp = ecdsa.generate_keypair()
+    mh = hashlib.sha256(b"probe").digest()
+    sig = ecdsa.sign(kp, b"probe")
+    pub = ecdsa.export_public_raw(kp)
+    ring = [ecdsa.key_to_int(pub), 5]
+    proof = prove_signature_list(params, mh, sig, pub, 0, ring)
+    ok = BatchVerifier(params, device="cpu").verify([mh], ring, [proof])
+assert ok == [True], ok
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or (m.startswith("zkecdsa_tpu") and not m.startswith("zkecdsa_tpu_torch")))
+print("FOREIGN", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, ZKECDSA_VERIFY_ROUNDS="2", PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_entry_point_defaults_to_cuda(monkeypatch):
+    """No device means CUDA; without a card the entry point raises instead
+    of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with trng.deterministic(1):
+        params = generate_params_list()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tbv.BatchVerifier(params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tbv.batch_verify_signature_list(params, [], [1, 2], [])
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# each wrapper, called with tensors that are not on the CPU
+_CALLS = {
+    "field_mul": lambda: tf.field_mul(tf.P256_P, _meta((4, 9)), _meta((4, 9))),
+    "ring_fold": lambda: tf.ring_fold(_meta((4, 9)), _meta((1, 2, 9)), _meta((1, 2, 9))),
+    "ec_add": lambda: tcurve.ec_add(tcurve.p256_ops, _meta((4, 3, 9)), _meta((4, 3, 9))),
+    "to_affine": lambda: tcurve.to_affine(tcurve.tom_ops, _meta((4, 4, 9))),
+    "straus_msm": lambda: tcurve.straus_msm(
+        tcurve.p256_ops, _meta((1, 4, 3, 9)), _meta((1, 4, 64), torch.uint8)
+    ),
+    "comb_mixed": lambda: tcurve.comb_mixed(
+        _meta((64, 256, 5, 9)), _meta((2, 64), torch.uint8)
+    ),
+}
+
+
+@pytest.mark.parametrize("name", list(_CALLS))
+def test_wrapper_without_kernels_raises(name, monkeypatch, tmp_path):
+    """A tensor off the CPU goes to the kernel: with no built library and
+    no nvcc the wrapper raises, and never takes the plain version."""
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "LIB_PATH", tmp_path / "missing.so")
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _CALLS[name]()

@@ -1,0 +1,147 @@
+"""The port's kernel wrappers, without the JAX package: this file imports
+only PyTorch and ``zkecdsa_tpu_torch``, so it also runs on a machine that
+has a card and no JAX.
+
+The ``cuda`` tests hold each CUDA kernel against its plain PyTorch version
+on the card (exact: canonical integers) and skip without one.  On such a
+machine, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+(``--noconftest``: the suite's conftest sets up JAX.)  The other tests run
+the wrappers' CPU path against Python integers and the host curves.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
+from zkecdsa_tpu_torch.ops import curve_ops as tcurve
+from zkecdsa_tpu_torch.ops import field as tf
+from zkecdsa_tpu_torch.protocol.batch import DeviceParams
+from zkecdsa_tpu_torch.utils import rng as trng
+from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list
+
+FIELDS = [tf.P256_P, tf.P256_N, tf.TOM_P, tf.TOM_N, tf.WAR_P]
+CURVES = [(tcurve.p256_ops, p256), (tcurve.tom_ops, tomEdwards256)]
+
+
+@pytest.fixture(autouse=True)
+def port_rng():
+    with trng.deterministic(0xC0FFEE):
+        yield
+
+
+@pytest.fixture
+def cuda():
+    """A CUDA device, decided when the test runs (never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _values(p: int, rs: np.random.RandomState, n: int) -> list[int]:
+    edge = [0, 1, p - 1, p - 2, ((1 << p.bit_length()) - 1) % p]
+    return edge + [int.from_bytes(rs.bytes(40), "little") % p for _ in range(n - len(edge))]
+
+
+def _edge_pairs(g, rs, n):
+    """n random pairs, then identity + P, P + P, P + (-P), identity + identity."""
+    G = g.generator()
+    pts = [G.mul(g.new_scalar(int.from_bytes(rs.bytes(32), "little") % g.order)) for _ in range(2 * n)]
+    P, Q = pts[:n], pts[n:]
+    ident = g.identity()
+    return P + [ident, P[0], P[1], ident], Q + [P[2], P[0], P[1].neg(), ident]
+
+
+@pytest.fixture(scope="module")
+def tables():
+    with trng.deterministic(31):
+        params = generate_params_list()
+    tabs = DeviceParams(params, "cpu").tabs()
+    return torch.cat([tabs["g_t8"], tabs["h_t8"]])
+
+
+@pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
+def test_field_mul_broadcasts(f):
+    """A [9] constant against a [B, 9] batch, both forms, on CPU tensors."""
+    rs = np.random.RandomState(1)
+    a_i = _values(f.p, rs, 12)
+    c = int.from_bytes(rs.bytes(40), "little") % f.p
+    a, k = f.pack(a_i), f.const(c)
+    assert f.unpack(tf.field_mul(f, a, k)) == [x * c % f.p for x in a_i]
+    assert f.unpack(tf.field_mul(f, k, a, a, a)) == [(c * x + x * x) % f.p for x in a_i]
+
+
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_straus_msm_edge_rows(ops, g):
+    """Rows of identity points and zero scalars give the identity; an
+    empty term axis gives the identity too."""
+    rs = np.random.RandomState(2)
+    P, Q = _edge_pairs(g, rs, 3)
+    pts = torch.stack([ops.pack_points(P), ops.pack_points(Q)])
+    dig = torch.from_numpy(rs.randint(0, 16, size=(2, len(P), 64)).astype(np.uint8))
+    dig[1] = 0
+    out = tcurve.straus_msm(ops, pts, dig)
+    want = g.identity()
+    for p, d in zip(P, dig[0].tolist()):
+        want = want.add(p.mul(g.new_scalar(int("".join("%x" % x for x in d), 16))))
+    assert ops.unpack_points(out[:1])[0].eq(want)
+    assert bool(ops.is_identity(out[1]))
+    empty = tcurve.straus_msm(ops, pts[:, :0], dig[:, :0])
+    assert ops.is_identity(empty).all()
+    assert 8 <= tcurve.msm_chunk(16, 8192) <= 32 and 8 <= tcurve.msm_chunk(1, 1) <= 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
+def test_field_mul_kernel_vs_plain(f, cuda):
+    rs = np.random.RandomState(3)
+    a = f.pack(_values(f.p, rs, 4096), cuda)
+    b = f.pack(_values(f.p, rs, 4096)[::-1], cuda)
+    assert torch.equal(tf.field_mul(f, a, b), tf.field_mul_plain(f, a, b))
+    assert torch.equal(tf.field_mul(f, a, b, b, a), tf.field_mul_plain(f, a, b, b, a))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ring_fold_kernel_vs_plain(cuda):
+    f = tf.TOM_N
+    rs = np.random.RandomState(4)
+    vals = f.pack(_values(f.p, rs, 16), cuda)
+    fs = f.pack(_values(f.p, rs, 8), cuda).reshape(2, 4, -1)
+    xf = fs.flip(1).contiguous()
+    got = tf.ring_fold(vals, fs, xf)
+    assert torch.equal(got, tf.ring_fold(vals, fs, xf, mul=tf.field_mul_plain))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_point_kernels_vs_plain(ops, g, cuda):
+    rs = np.random.RandomState(61)
+    P_h, Q_h = _edge_pairs(g, rs, 60)
+    P, Q = ops.pack_points(P_h, cuda), ops.pack_points(Q_h, cuda)
+    assert torch.equal(tcurve.ec_add(ops, P, Q), ops.add(P, Q))
+    for a, b in zip(tcurve.to_affine(ops, P), ops.to_affine(P)):
+        assert torch.equal(a, b)
+    pts = torch.stack([P, Q])
+    dig = torch.from_numpy(rs.randint(0, 16, size=(2, P.shape[0], 64)).astype(np.uint8)).to(cuda)
+    got, plain = tcurve.straus_msm(ops, pts, dig), ops.msm_shared(pts, dig)
+    # the kernel adds in another order: compare the affine points
+    for a, b in zip(ops.to_affine(got), ops.to_affine(plain)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_comb_mixed_kernel_vs_plain(tables, cuda):
+    tabs = tables.to(cuda)
+    d8 = torch.from_numpy(np.random.RandomState(71).randint(0, 256, size=(64, 64)).astype(np.uint8))
+    d8[0] = 0
+    d8 = d8.to(cuda)
+    got = tcurve.comb_mixed(tabs, d8)
+    assert torch.equal(got, tcurve.tom_ops.mul_comb_mixed(tabs, d8))
+    assert bool(tcurve.tom_ops.is_identity(got[0]))
+    torch.cuda.synchronize()

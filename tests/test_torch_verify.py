@@ -1,0 +1,197 @@
+"""The port's batched verifier (``zkecdsa_tpu_torch.protocol.batch_verify``)
+against the JAX package's, end to end on the CPU.
+
+Parameters and proofs are made by the reference and cross to the port on
+the wire (``carry.params_from_jax``, serde JSON).  Both packages draw the
+verifier's randomness (the 20-of-80 round sample, the combined check's
+r_i) from their own ``rng``; every test enters both.
+"""
+
+import hashlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zkecdsa_tpu import ecdsa as jecdsa
+from zkecdsa_tpu.curves.instances import p256 as jp256
+from zkecdsa_tpu.curves.instances import tomEdwards256 as jtom
+from zkecdsa_tpu.ops.curve_ops import nibble_digits as jnibbles
+from zkecdsa_tpu.ops.curve_ops import p256_ops as jp256_ops
+from zkecdsa_tpu.ops.f32field import TOM_N as JTOM_N
+from zkecdsa_tpu.ops.f32field import P256_P as JP256_P
+from zkecdsa_tpu.ops.f32field import TOM_P as JTOM_P
+from zkecdsa_tpu.protocol import batch_verify as jbv
+from zkecdsa_tpu.protocol.batch import _pk_scalars as jpk_scalars
+from zkecdsa_tpu.protocol.batch import device_params_for as jax_device_params_for
+from zkecdsa_tpu.serde import read_json as jread_json
+from zkecdsa_tpu.serde import write_json as jwrite_json
+from zkecdsa_tpu.utils import rng as jrng
+from zkecdsa_tpu.zkp_attest_list import SignatureProofList as JProof
+from zkecdsa_tpu.zkp_attest_list import SystemParametersList as JParams
+from zkecdsa_tpu.zkp_attest_list import generate_params_list as jgenerate_params
+from zkecdsa_tpu.zkp_attest_list import prove_signature_list as jprove
+from zkecdsa_tpu.zkp_attest_list import verify_signature_list as jverify_host
+from zkecdsa_tpu_torch import carry
+from zkecdsa_tpu_torch.curves.instances import p256
+from zkecdsa_tpu_torch.ops import curve_ops as tcurve
+from zkecdsa_tpu_torch.ops.field import P256_P, TOM_P
+from zkecdsa_tpu_torch.protocol import batch_verify as tbv
+from zkecdsa_tpu_torch.protocol.batch import DeviceParams
+from zkecdsa_tpu_torch.serde import read_json, write_json
+from zkecdsa_tpu_torch.utils import rng as trng
+from zkecdsa_tpu_torch.utils.profiling import StageTimer
+from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList
+
+S = 20  # verify rounds
+
+
+@pytest.fixture(autouse=True)
+def port_rng():
+    with trng.deterministic(0xC0FFEE):
+        yield
+
+
+def _to_port(proof) -> SignatureProofList:
+    return read_json(SignatureProofList, jwrite_json(JProof, proof))
+
+
+def test_vphase_matches_reference():
+    rs = np.random.RandomState(81)
+    with jrng.deterministic(22):
+        jparams = jgenerate_params()
+    tparams = carry.params_from_jax(jwrite_json(JParams, jparams))
+    R_h = jp256.generator().mul(jp256.new_scalar(int.from_bytes(rs.bytes(32), "big") % jp256.order))
+    n = jp256.order
+    z1 = int.from_bytes(rs.bytes(32), "big") % n
+    ms = [int.from_bytes(rs.bytes(32), "big") % n for _ in range(S)]
+    bits = rs.randint(0, 2, size=(1, S)).astype(bool)
+    rb = [int.from_bytes(rs.bytes(32), "big") % jtom.order for _ in range(2 * S)]
+
+    ref = jbv._VPHASE(
+        jax_device_params_for(jparams).tabs(),
+        jnp.asarray(jp256_ops.pack_points([R_h])),
+        jnp.asarray(jnibbles([z1])),
+        jnp.asarray(jnibbles(ms).reshape(1, S, 64)),
+        jnp.asarray(bits),
+        jpk_scalars(JTOM_N, rb).reshape(1, S, 2, -1),
+    )
+    u8 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8))  # noqa: E731
+    got = tbv.vphase(
+        DeviceParams(tparams, "cpu").tabs(),
+        tcurve.p256_ops.pack_points([_to_port_point(R_h)]),
+        u8(tcurve.nibble_digits([z1])),
+        u8(tcurve.nibble_digits(ms).reshape(1, S, 64)),
+        torch.from_numpy(bits),
+        u8(tcurve.byte_digits(rb).reshape(1, S, 2, 32)),
+    )
+    for key, fields in (("T0_aff", (P256_P, JP256_P)), ("coord", (P256_P, JP256_P)),
+                        ("com_aff", (TOM_P, JTOM_P))):
+        tf_, jf_ = fields
+        for k in range(2):
+            assert tf_.unpack(got[key][k]) == jf_.unpack_canonical(np.asarray(ref[key][k])), key
+        if key != "com_aff":
+            assert got[key][2].tolist() == np.asarray(ref[key][2]).tolist()
+
+
+def _to_port_point(pt):
+    """A reference P-256 point as the port's (same coordinates)."""
+    from zkecdsa_tpu_torch.curves.weier import WeierstrassPoint
+
+    return WeierstrassPoint(p256, pt.x, pt.y, pt.z)
+
+
+@pytest.fixture(scope="module")
+def gate():
+    """The shape of tests/test_pipeline_gate.py: one proof, ring of 4."""
+    with jrng.deterministic(77):
+        params = jgenerate_params()
+        kp = jecdsa.generate_keypair()
+        msg = b"gate"
+        sig = jecdsa.sign(kp, msg)
+        pub = jecdsa.export_public_raw(kp)
+        mh = hashlib.sha256(msg).digest()
+        ring = [jecdsa.key_to_int(pub), 11, 13, 17]
+    with jrng.scoped(jrng.DeterministicSource(4242)):
+        proof = jprove(params, mh, sig, pub, 0, ring)
+    return params, mh, ring, proof
+
+
+def test_batch_verifier_matches_reference(gate):
+    params, mh, ring, proof = gate
+    tparams = carry.params_from_jax(jwrite_json(JParams, params))
+    tproof = _to_port(proof)
+    bad = hashlib.sha256(b"tampered").digest()
+    port = tbv.BatchVerifier(tparams, device="cpu")
+    timer = StageTimer("cpu")
+    with jrng.deterministic(5), trng.deterministic(5):
+        got = [port.verify([mh], ring, [tproof], timer=timer), port.verify([bad], ring, [tproof])]
+        ref = [jbv.BatchVerifier(params).verify([m], ring, [proof]) for m in (mh, bad)]
+    assert got == ref == [[True], [False]]
+    assert port.verify([], ring, []) == []
+    assert {"verify.device", "verify.gk_recombine", "msm.device"} <= set(timer.stages)
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """Two signers in a ring of 4, one proof each (the shape of
+    test_batch_verify.py's mixed-batch tests)."""
+    with jrng.deterministic(11):
+        params = jgenerate_params()
+        kps = [jecdsa.generate_keypair() for _ in range(2)]
+        pubs = [jecdsa.export_public_raw(kp) for kp in kps]
+        ring = [jecdsa.key_to_int(p) for p in pubs] + [21, 22]
+        msgs = [hashlib.sha256(f"mixed {i}".encode()).digest() for i in range(2)]
+        proofs = [
+            jprove(params, msgs[i], jecdsa.sign(kps[i], f"mixed {i}".encode()), pubs[i], i, ring)
+            for i in range(2)
+        ]
+    return params, msgs, ring, proofs
+
+
+def _host_verdicts(params, msgs, ring, proofs) -> list[bool]:
+    out = []
+    for m, p in zip(msgs, proofs):
+        try:
+            out.append(bool(jverify_host(params, m, ring, p)))
+        except (ValueError, IndexError):  # a malformed proof raises on the host path
+            out.append(False)
+    return out
+
+
+def test_mixed_batch_combined_and_attribution(mixed, monkeypatch):
+    """Honest, tampered-GK and truncated-exp instances: per-instance
+    verdicts equal the reference host verifier's.  With the port's
+    _COMB_W shrunk the Tom-256 check takes the combined path, and a
+    failure there runs the per-row attribution."""
+    params, msgs, ring, jproofs = mixed
+    monkeypatch.setattr(tbv, "_COMB_W", 64)
+    tparams = carry.params_from_jax(jwrite_json(JParams, params))
+    port = tbv.BatchVerifier(tparams, device="cpu")
+
+    honest = [_to_port(p) for p in jproofs]
+    tampered = [_to_port(p) for p in jproofs]
+    tampered[1].membershipProof.f[0] = tampered[1].membershipProof.f[1]
+    truncated = [_to_port(p) for p in jproofs]
+    truncated[0].expProof = truncated[0].expProof[:10]
+
+    cases = [
+        (honest, [True, True]),
+        (tampered, [True, False]),
+        (truncated, [False, True]),
+    ]
+    for k, (batch, want) in enumerate(cases):
+        timer = StageTimer("cpu")
+        with trng.deterministic(100 + k):
+            got = port.verify(msgs, ring, batch, timer=timer)
+        assert got == want, k
+        # the reference host verifier, per instance, on the same proofs
+        ref_proofs = [jread_json(JProof, write_json(SignatureProofList, p)) for p in batch]
+        with jrng.deterministic(200 + k):
+            assert _host_verdicts(params, msgs, ring, ref_proofs) == want, k
+        if k < 2:
+            # Tom-256 takes the combined check; the per-row path runs for
+            # P-256, and for Tom-256 again when the combined check fails
+            assert timer.counts.get("msm.combine_host") == 1, timer.counts
+            assert timer.counts.get("msm.pack_host") == 1 + k, timer.counts

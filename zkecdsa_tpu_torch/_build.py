@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (all sources at once,
+one process each), links them into ``build/zkecdsa_tpu_torch/
+libzkkernels.so`` beside the package, and the library is loaded with
+``ctypes``: a plain C interface, so the build takes seconds, not the
+minutes a source that includes PyTorch's headers would.  The build runs at
+the first kernel launch and again only when a source is newer than the
+library.
+
+Every C entry returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero code.  A missing ``nvcc`` or a failed build raises: no caller
+falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = ["load", "build", "check", "LIB_PATH"]
+
+_PKG = Path(__file__).resolve().parent
+_SRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "zkecdsa_tpu_torch"
+LIB_PATH = BUILD_DIR / "libzkkernels.so"
+LOG_PATH = BUILD_DIR / "nvcc.log"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C entry -> argument types (every pointer and the stream as c_void_p)
+_SIGNATURES = {
+    "zk_field_mul": [_I, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P],
+    "zk_ec_add": [_I, _L, _P, _P, _P, _P],
+    "zk_to_affine": [_I, _L, _P, _P, _P, _P, _P],
+    "zk_straus_msm": [_I, _L, _L, _I, _P, _P, _P, _P, _P],
+    "zk_comb_mixed": [_L, _P, _P, _P, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "zkecdsa_tpu_torch kernels cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(_SRC.glob("*.cu"))
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    deps = _sources() + sorted(_SRC.glob("*.cuh"))
+    return any(p.stat().st_mtime > built for p in deps)
+
+
+def build() -> float:
+    """Compile every source (in parallel) and link the library; returns
+    the seconds it took.  Raises RuntimeError with nvcc's output on a
+    failure."""
+    import time
+
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(str(obj))
+            procs.append(subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        errors, report = [], []
+        for src, proc in zip(_sources(), procs):
+            out, _ = proc.communicate()
+            report.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{out}")
+        # ptxas' register, shared-memory and spill report of every kernel
+        LOG_PATH.write_text("\n".join(report))
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp_lib = Path(tmp) / LIB_PATH.name
+        link = subprocess.run(
+            [nvcc, *_NVCC_FLAGS, "-shared", *objs, "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp_lib, LIB_PATH)  # atomic: a reader never sees half a file
+    return time.perf_counter() - t0
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if it is missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code}")

@@ -1,0 +1,307 @@
+// Complete, branch-free point formulas for the three curves, on Montgomery
+// field elements (field.cuh).  The same algebra as the reference package's
+// zkecdsa_tpu/ops/curve_ops.py, operation for operation, so a kernel and
+// the plain PyTorch version (zkecdsa_tpu_torch/ops/curve_ops.py) reach the
+// same canonical projective coordinates:
+//
+//   * P-256 and war256: Renes-Costello-Batina 2015 for a = -3, projective
+//     (X:Y:Z), identity (0:1:0) (curve_ops.py WeierOps.add / dbl);
+//   * Tom-256: Hisil-Wong-Carter-Dawson 2008, extended (X:Y:T:Z), identity
+//     (0:1:0:1) (EdwardsOps.add / dbl), and the mixed add against affine
+//     comb-table rows (X2, Y2, X2+Y2, d*T2, a*X2) (EdwardsOps.add_mixed).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "field.cuh"
+
+// Curve ids; the same order as zkecdsa_tpu_torch/ops/curve_ops.py.
+#define ZK_CURVE_P256 0
+#define ZK_CURVE_WAR 1
+#define ZK_CURVE_TOM 2
+
+// Curve coefficients in Montgomery form: b for the Weierstrass curves, a
+// and d for Tom-256.  Checked by tests/test_torch_field.py.
+static __constant__ uint32_t ZK_COEF[4][ZK_NL] = {
+    // p256 b
+    {0xdc30061du, 0x29c4bddfu, 0xd89cdf62u, 0x9c542a73u, 0xacf005ccu, 0xf7212ed6u, 0x09721a8eu, 0xe0b74e51u, 0x00000000u},
+    // war256 b
+    {0x96fcf224u, 0x640337e6u, 0x9de4f0cbu, 0xf325834fu, 0x3b11a06eu, 0x3d75190bu, 0x59cb5468u, 0x0a994682u, 0x00000000u},
+    // tomEdwards256 a
+    {0xcc44b5e1u, 0xeaa1d5e5u, 0x405c1707u, 0x5d37cba0u, 0x14890a3bu, 0x926142b4u, 0x73a95ad4u, 0x0e3d3b67u, 0x00000003u},
+    // tomEdwards256 d
+    {0x4ccfe7adu, 0xf12b020eu, 0xc3f5b8eau, 0xa9a1c831u, 0x8ab7f36au, 0x394067bbu, 0xa83ca491u, 0x3b043aa4u, 0x00000002u},
+};
+
+template <int CID>
+struct CurveT;
+
+template <>
+struct CurveT<ZK_CURVE_P256> {
+    static constexpr int C = 3;
+    static constexpr int MOD = ZK_P256_P;
+    static constexpr int B = 0;  // row of ZK_COEF
+};
+
+template <>
+struct CurveT<ZK_CURVE_WAR> {
+    static constexpr int C = 3;
+    static constexpr int MOD = ZK_WAR_P;
+    static constexpr int B = 1;
+};
+
+template <>
+struct CurveT<ZK_CURVE_TOM> {
+    static constexpr int C = 4;
+    static constexpr int MOD = ZK_TOM_P;
+    static constexpr int A = 2;
+    static constexpr int D = 3;
+};
+
+// A point: C coordinates of ZK_NL limbs.
+template <int CID>
+struct Pt {
+    uint32_t c[CurveT<CID>::C][ZK_NL];
+};
+
+template <int CID>
+__device__ __forceinline__ const ZkModulus& curve_mod() {
+    return ZK_MODS[CurveT<CID>::MOD];
+}
+
+template <int CID>
+__device__ __forceinline__ void pt_identity(Pt<CID>& r) {
+    const ZkModulus& M = curve_mod<CID>();
+#pragma unroll
+    for (int k = 0; k < CurveT<CID>::C; ++k) fe_set_zero(r.c[k]);
+    fe_copy(r.c[1], M.one);                                   // Y = 1
+    if constexpr (CurveT<CID>::C == 4) fe_copy(r.c[3], M.one);  // Z = 1 (Edwards)
+}
+
+// RCB15 complete addition, a = -3 (curve_ops.py WeierOps.add)
+template <int CID>
+__device__ __forceinline__ void weier_add(Pt<CID>& r, const Pt<CID>& P, const Pt<CID>& Q) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* b = ZK_COEF[CurveT<CID>::B];
+    Fe m0, m1, m2, s1, s2, sxy, syz, sxz, t, w, zc, xc, v, u;
+    fe_mont_mul(m0, P.c[0], Q.c[0], M);
+    fe_mont_mul(m1, P.c[1], Q.c[1], M);
+    fe_mont_mul(m2, P.c[2], Q.c[2], M);
+    fe_add(s1, P.c[0], P.c[1], M);
+    fe_add(s2, Q.c[0], Q.c[1], M);
+    fe_mont_mul(sxy, s1, s2, M);
+    fe_sub(sxy, sxy, m0, M);
+    fe_sub(sxy, sxy, m1, M);
+    fe_add(s1, P.c[1], P.c[2], M);
+    fe_add(s2, Q.c[1], Q.c[2], M);
+    fe_mont_mul(syz, s1, s2, M);
+    fe_sub(syz, syz, m1, M);
+    fe_sub(syz, syz, m2, M);
+    fe_add(s1, P.c[0], P.c[2], M);
+    fe_add(s2, Q.c[0], Q.c[2], M);
+    fe_mont_mul(sxz, s1, s2, M);
+    fe_sub(sxz, sxz, m0, M);
+    fe_sub(sxz, sxz, m2, M);
+    fe_mont_mul(t, b, m2, M);
+    fe_sub(t, sxz, t, M);
+    fe_mul_small<3>(w, t, M);           // w = 3 (sxz - b m2)
+    fe_sub(zc, m1, w, M);
+    fe_add(xc, m1, w, M);
+    fe_mont_mul(t, b, sxz, M);
+    fe_mul_small<3>(s1, m2, M);
+    fe_sub(t, t, s1, M);
+    fe_sub(t, t, m0, M);
+    fe_mul_small<3>(v, t, M);           // v = 3 (b sxz - 3 m2 - m0)
+    fe_sub(t, m0, m2, M);
+    fe_mul_small<3>(u, t, M);           // u = 3 (m0 - m2)
+    fe_mont_mul(s1, sxy, xc, M);
+    fe_mont_mul(s2, syz, v, M);
+    fe_sub(r.c[0], s1, s2, M);          // x3 = sxy xc - syz v
+    fe_mont_mul(s1, xc, zc, M);
+    fe_mont_mul(s2, u, v, M);
+    fe_add(r.c[1], s1, s2, M);          // y3 = xc zc + u v
+    fe_mont_mul(s1, syz, zc, M);
+    fe_mont_mul(s2, sxy, u, M);
+    fe_add(r.c[2], s1, s2, M);          // z3 = syz zc + sxy u
+}
+
+// RCB15 doubling, a = -3 (curve_ops.py WeierOps.dbl)
+template <int CID>
+__device__ __forceinline__ void weier_dbl(Pt<CID>& r, const Pt<CID>& P) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* b = ZK_COEF[CurveT<CID>::B];
+    Fe xx, yy, zz, xy2, xz2, yz2, t, s, w, zc, xc, v, u;
+    fe_mont_mul(xx, P.c[0], P.c[0], M);
+    fe_mont_mul(yy, P.c[1], P.c[1], M);
+    fe_mont_mul(zz, P.c[2], P.c[2], M);
+    fe_mont_mul(t, P.c[0], P.c[1], M);
+    fe_add(xy2, t, t, M);
+    fe_mont_mul(t, P.c[0], P.c[2], M);
+    fe_add(xz2, t, t, M);
+    fe_mont_mul(t, P.c[1], P.c[2], M);
+    fe_add(yz2, t, t, M);
+    fe_mont_mul(t, b, zz, M);
+    fe_sub(t, t, xz2, M);
+    fe_mul_small<3>(w, t, M);           // w = 3 (b zz - xz2)
+    fe_sub(zc, yy, w, M);
+    fe_add(xc, yy, w, M);
+    fe_mont_mul(t, b, xz2, M);
+    fe_mul_small<3>(s, zz, M);
+    fe_sub(t, t, s, M);
+    fe_sub(t, t, xx, M);
+    fe_mul_small<3>(v, t, M);           // v = 3 (b xz2 - 3 zz - xx)
+    fe_sub(t, xx, zz, M);
+    fe_mul_small<3>(u, t, M);           // u = 3 (xx - zz)
+    fe_mont_mul(t, xy2, zc, M);
+    fe_mont_mul(s, yz2, v, M);
+    fe_sub(r.c[0], t, s, M);            // x3 = xy2 zc - yz2 v
+    fe_mont_mul(t, xc, zc, M);
+    fe_mont_mul(s, u, v, M);
+    fe_add(r.c[1], t, s, M);            // y3 = xc zc + u v
+    fe_mont_mul(t, yz2, yy, M);
+    fe_mul_small<4>(r.c[2], t, M);      // z3 = 4 yz2 yy
+}
+
+// Shared tail of the HWCD08 formulas: (E F, G H, E H, F G)
+template <int CID>
+__device__ __forceinline__ void edw_finish(Pt<CID>& r, const Fe E, const Fe F, const Fe G,
+                                           const Fe H, const ZkModulus& M) {
+    fe_mont_mul(r.c[0], E, F, M);
+    fe_mont_mul(r.c[1], G, H, M);
+    fe_mont_mul(r.c[2], E, H, M);
+    fe_mont_mul(r.c[3], F, G, M);
+}
+
+// HWCD08 unified addition (curve_ops.py EdwardsOps.add)
+template <int CID>
+__device__ __forceinline__ void edw_add(Pt<CID>& r, const Pt<CID>& P, const Pt<CID>& Q) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* ca = ZK_COEF[CurveT<CID>::A];
+    const uint32_t* cd = ZK_COEF[CurveT<CID>::D];
+    Fe A, B, C, D, E, F, G, H, s1, s2;
+    fe_mont_mul(A, P.c[0], Q.c[0], M);
+    fe_mont_mul(B, P.c[1], Q.c[1], M);
+    fe_mont_mul(s1, P.c[2], Q.c[2], M);
+    fe_mont_mul(C, cd, s1, M);
+    fe_mont_mul(D, P.c[3], Q.c[3], M);
+    fe_add(s1, P.c[0], P.c[1], M);
+    fe_add(s2, Q.c[0], Q.c[1], M);
+    fe_mont_mul(E, s1, s2, M);
+    fe_sub(E, E, A, M);
+    fe_sub(E, E, B, M);
+    fe_sub(F, D, C, M);
+    fe_add(G, D, C, M);
+    fe_mont_mul(s1, ca, A, M);
+    fe_sub(H, B, s1, M);
+    edw_finish<CID>(r, E, F, G, H, M);
+}
+
+// HWCD08 doubling (curve_ops.py EdwardsOps.dbl)
+template <int CID>
+__device__ __forceinline__ void edw_dbl(Pt<CID>& r, const Pt<CID>& P) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* ca = ZK_COEF[CurveT<CID>::A];
+    Fe A, B, C, D, E, F, G, H, s;
+    fe_mont_mul(A, P.c[0], P.c[0], M);
+    fe_mont_mul(B, P.c[1], P.c[1], M);
+    fe_mont_mul(s, P.c[3], P.c[3], M);
+    fe_add(C, s, s, M);
+    fe_mont_mul(D, ca, A, M);
+    fe_add(s, P.c[0], P.c[1], M);
+    fe_mont_mul(E, s, s, M);
+    fe_sub(E, E, A, M);
+    fe_sub(E, E, B, M);
+    fe_add(G, D, B, M);
+    fe_sub(F, G, C, M);
+    fe_sub(H, D, B, M);
+    edw_finish<CID>(r, E, F, G, H, M);
+}
+
+// Mixed addition against one affine comb-table entry T = (X2, Y2, X2+Y2,
+// d*T2, a*X2), Montgomery form (curve_ops.py EdwardsOps.add_mixed)
+__device__ __forceinline__ void edw_add_mixed(Pt<ZK_CURVE_TOM>& r, const Pt<ZK_CURVE_TOM>& P,
+                                              const Fe tx, const Fe ty, const Fe txy,
+                                              const Fe tdt, const Fe tax) {
+    const ZkModulus& M = curve_mod<ZK_CURVE_TOM>();
+    Fe A, B, C, E, F, G, H, s;
+    fe_mont_mul(A, P.c[0], tx, M);
+    fe_mont_mul(B, P.c[1], ty, M);
+    fe_mont_mul(C, P.c[2], tdt, M);
+    fe_add(s, P.c[0], P.c[1], M);
+    fe_mont_mul(E, s, txy, M);
+    fe_sub(E, E, A, M);
+    fe_sub(E, E, B, M);
+    fe_sub(F, P.c[3], C, M);
+    fe_add(G, P.c[3], C, M);
+    fe_mont_mul(s, P.c[0], tax, M);
+    fe_sub(H, B, s, M);
+    edw_finish<ZK_CURVE_TOM>(r, E, F, G, H, M);
+}
+
+template <int CID>
+__device__ __forceinline__ void pt_add(Pt<CID>& r, const Pt<CID>& P, const Pt<CID>& Q) {
+    if constexpr (CurveT<CID>::C == 4) {
+        edw_add<CID>(r, P, Q);
+    } else {
+        weier_add<CID>(r, P, Q);
+    }
+}
+
+template <int CID>
+__device__ __forceinline__ void pt_dbl(Pt<CID>& r, const Pt<CID>& P) {
+    if constexpr (CurveT<CID>::C == 4) {
+        edw_dbl<CID>(r, P);
+    } else {
+        weier_dbl<CID>(r, P);
+    }
+}
+
+// canonical standard-form coordinates in device memory <-> Montgomery
+template <int CID>
+__device__ __forceinline__ void pt_load(Pt<CID>& r, const uint32_t* g) {
+    const ZkModulus& M = curve_mod<CID>();
+#pragma unroll
+    for (int k = 0; k < CurveT<CID>::C; ++k) {
+        Fe t;
+        fe_load(t, g + k * ZK_NL);
+        fe_to_mont(r.c[k], t, M);
+    }
+}
+
+template <int CID>
+__device__ __forceinline__ void pt_store(uint32_t* g, const Pt<CID>& P) {
+    const ZkModulus& M = curve_mod<CID>();
+#pragma unroll
+    for (int k = 0; k < CurveT<CID>::C; ++k) {
+        Fe t;
+        fe_from_mont(t, P.c[k], M);
+        fe_store(g + k * ZK_NL, t);
+    }
+}
+
+// Montgomery-form copy of a point (for scratch inside one kernel)
+template <int CID>
+__device__ __forceinline__ void pt_load_raw(Pt<CID>& r, const uint32_t* g) {
+#pragma unroll
+    for (int k = 0; k < CurveT<CID>::C; ++k) fe_load(r.c[k], g + k * ZK_NL);
+}
+
+template <int CID>
+__device__ __forceinline__ void pt_store_raw(uint32_t* g, const Pt<CID>& P) {
+#pragma unroll
+    for (int k = 0; k < CurveT<CID>::C; ++k) fe_store(g + k * ZK_NL, P.c[k]);
+}
+
+// Run f(std::integral_constant<int, CID>) for a run-time curve id; the
+// callee launches its kernel template for that CID.
+template <typename F>
+static int zk_dispatch_curve(int curve, F&& f) {
+    switch (curve) {
+        case ZK_CURVE_P256: f(std::integral_constant<int, ZK_CURVE_P256>{}); return 0;
+        case ZK_CURVE_WAR: f(std::integral_constant<int, ZK_CURVE_WAR>{}); return 0;
+        case ZK_CURVE_TOM: f(std::integral_constant<int, ZK_CURVE_TOM>{}); return 0;
+        default: return (int)cudaErrorInvalidValue;
+    }
+}

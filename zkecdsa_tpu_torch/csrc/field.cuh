@@ -1,0 +1,215 @@
+// Modular arithmetic over the five moduli of the two-curve design, for
+// Hopper.  Counterpart of zkecdsa_tpu/ops/f32field.py (its base-2^7 float32
+// digits existed for the TPU's matrix unit; here a field element is nine
+// little-endian 32-bit limbs, because the Tom-256 base prime is 258 bits).
+//
+// Boundary contract: every value a kernel reads or writes in device memory
+// is canonical (in [0, p)) and in standard form.  Inside a kernel values are
+// in Montgomery form (x * R mod p, R = 2^288) and every operation returns a
+// fully reduced result, so the kernel arithmetic is branch-free and needs no
+// bound tracking.
+//
+// The constants below are checked against Python integers by
+// tests/test_torch_field.py (which parses this file).
+#pragma once
+
+#include <cstdint>
+
+#define ZK_NL 9  // limbs per field element
+
+// Modulus ids; the same order as zkecdsa_tpu_torch/ops/field.py.
+#define ZK_P256_P 0
+#define ZK_P256_N 1
+#define ZK_TOM_P 2
+#define ZK_TOM_N 3
+#define ZK_WAR_P 4
+
+struct ZkModulus {
+    uint32_t p[ZK_NL];    // the modulus
+    uint32_t r2[ZK_NL];   // R^2 mod p (to Montgomery form)
+    uint32_t one[ZK_NL];  // R mod p (Montgomery one)
+    uint32_t pinv;        // -p^-1 mod 2^32
+};
+
+static __constant__ ZkModulus ZK_MODS[5] = {
+    {  // P256_P
+        {0xffffffffu, 0xffffffffu, 0xffffffffu, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000001u, 0xffffffffu, 0x00000000u},
+        {0x00000002u, 0x00000005u, 0x00000003u, 0xfffffffeu, 0xfffffff9u, 0xfffffffbu, 0xfffffffcu, 0xfffffffcu, 0x00000000u},
+        {0x00000000u, 0x00000001u, 0x00000000u, 0x00000000u, 0xffffffffu, 0xffffffffu, 0xffffffffu, 0xfffffffeu, 0x00000000u},
+        0x00000001u},
+    {  // P256_N
+        {0xfc632551u, 0xf3b9cac2u, 0xa7179e84u, 0xbce6faadu, 0xffffffffu, 0xffffffffu, 0x00000000u, 0xffffffffu, 0x00000000u},
+        {0x3af42abbu, 0x5706acb0u, 0x30a9cdc7u, 0xdf119f1bu, 0x51d16bdbu, 0x619076abu, 0xd0b168a4u, 0x1c1f0858u, 0x00000000u},
+        {0x00000000u, 0x039cdaafu, 0x0c46353du, 0x58e8617bu, 0x43190552u, 0x00000000u, 0x00000000u, 0xffffffffu, 0x00000000u},
+        0xee00bc4fu},
+    {  // TOM_P
+        {0xbc47d3afu, 0x713c3d82u, 0x57cc4ff9u, 0xae382c79u, 0x00000002u, 0x00000000u, 0x00000004u, 0xfffffffcu, 0x00000003u},
+        {0xad03ba69u, 0xdf4d5887u, 0x94025ccdu, 0xb1571595u, 0x5ed18516u, 0x16ff2f35u, 0xc31e50c3u, 0xcb6e66e9u, 0x00000001u},
+        {0x40000000u, 0x50ee0b14u, 0xa3b0f09fu, 0xaa0cec01u, 0x5471f4e1u, 0xffffffffu, 0xffffffffu, 0xfffffffeu, 0x00000000u},
+        0x26289cb1u},
+    {  // TOM_N (the Tom-256 group order is the P-256 base prime)
+        {0xffffffffu, 0xffffffffu, 0xffffffffu, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000001u, 0xffffffffu, 0x00000000u},
+        {0x00000002u, 0x00000005u, 0x00000003u, 0xfffffffeu, 0xfffffff9u, 0xfffffffbu, 0xfffffffcu, 0xfffffffcu, 0x00000000u},
+        {0x00000000u, 0x00000001u, 0x00000000u, 0x00000000u, 0xffffffffu, 0xffffffffu, 0xffffffffu, 0xfffffffeu, 0x00000000u},
+        0x00000001u},
+    {  // WAR_P
+        {0xb1c4b117u, 0x93135661u, 0x30e73177u, 0x7e72b42bu, 0x00000001u, 0x00000000u, 0x00000001u, 0xffffffffu, 0x00000000u},
+        {0x202a7633u, 0x7c5edd01u, 0xc33bd53du, 0x9da74f75u, 0xedc98d7eu, 0xe8bed96du, 0xdec364bbu, 0x57fe6976u, 0x00000000u},
+        {0x00000000u, 0x4e3b4ee9u, 0x6ceca99eu, 0xcf18ce88u, 0x818d4bd4u, 0xfffffffeu, 0xffffffffu, 0xfffffffeu, 0x00000000u},
+        0x0f646959u},
+};
+
+typedef uint32_t Fe[ZK_NL];
+
+__device__ __forceinline__ void fe_copy(Fe r, const Fe a) {
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) r[i] = a[i];
+}
+
+__device__ __forceinline__ void fe_set_zero(Fe r) {
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) r[i] = 0u;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const Fe a) {
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) acc |= a[i];
+    return acc == 0u;
+}
+
+// r = c ? a : b, without a branch
+__device__ __forceinline__ void fe_select(Fe r, bool c, const Fe a, const Fe b) {
+    const uint32_t m = 0u - (uint32_t)c;
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) r[i] = (a[i] & m) | (b[i] & ~m);
+}
+
+// r = t - p if t >= p else t, for t < 2p held in ZK_NL limbs plus `hi`.
+__device__ __forceinline__ void fe_reduce_once(Fe r, const uint32_t* t, uint32_t hi,
+                                               const ZkModulus& M) {
+    uint32_t d[ZK_NL];
+    uint64_t borrow = 0;
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) {
+        const uint64_t s = (uint64_t)t[i] - M.p[i] - borrow;
+        d[i] = (uint32_t)s;
+        borrow = (s >> 32) & 1u;
+    }
+    // t >= p exactly when the subtraction did not borrow past the top limb
+    const bool ge = (hi != 0u) || (borrow == 0);
+    fe_select(r, ge, d, t);
+}
+
+// r = a + b mod p (a, b canonical, either domain)
+__device__ __forceinline__ void fe_add(Fe r, const Fe a, const Fe b, const ZkModulus& M) {
+    uint32_t s[ZK_NL];
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) {
+        c += (uint64_t)a[i] + b[i];
+        s[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    fe_reduce_once(r, s, (uint32_t)c, M);
+}
+
+// r = a - b mod p (a, b canonical, either domain)
+__device__ __forceinline__ void fe_sub(Fe r, const Fe a, const Fe b, const ZkModulus& M) {
+    uint32_t d[ZK_NL];
+    uint64_t borrow = 0;
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) {
+        const uint64_t s = (uint64_t)a[i] - b[i] - borrow;
+        d[i] = (uint32_t)s;
+        borrow = (s >> 32) & 1u;
+    }
+    const uint32_t m = 0u - (uint32_t)borrow;  // add p back on a borrow
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) {
+        c += (uint64_t)d[i] + (M.p[i] & m);
+        r[i] = (uint32_t)c;
+        c >>= 32;
+    }
+}
+
+// Montgomery product r = a * b * R^-1 mod p (CIOS, 32-bit words, 64-bit
+// accumulators).  a, b < p gives r < p.
+__device__ __forceinline__ void fe_mont_mul(Fe r, const Fe a, const Fe b, const ZkModulus& M) {
+    uint32_t t[ZK_NL + 2];
+#pragma unroll
+    for (int i = 0; i < ZK_NL + 2; ++i) t[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) {
+        uint64_t c = 0;
+#pragma unroll
+        for (int j = 0; j < ZK_NL; ++j) {
+            c += (uint64_t)a[j] * b[i] + t[j];
+            t[j] = (uint32_t)c;
+            c >>= 32;
+        }
+        c += t[ZK_NL];
+        t[ZK_NL] = (uint32_t)c;
+        t[ZK_NL + 1] = (uint32_t)(c >> 32);
+        const uint32_t q = t[0] * M.pinv;
+        c = ((uint64_t)q * M.p[0] + t[0]) >> 32;
+#pragma unroll
+        for (int j = 1; j < ZK_NL; ++j) {
+            c += (uint64_t)q * M.p[j] + t[j];
+            t[j - 1] = (uint32_t)c;
+            c >>= 32;
+        }
+        c += t[ZK_NL];
+        t[ZK_NL - 1] = (uint32_t)c;
+        t[ZK_NL] = t[ZK_NL + 1] + (uint32_t)(c >> 32);
+    }
+    fe_reduce_once(r, t, t[ZK_NL], M);
+}
+
+__device__ __forceinline__ void fe_to_mont(Fe r, const Fe a, const ZkModulus& M) {
+    fe_mont_mul(r, a, M.r2, M);
+}
+
+__device__ __forceinline__ void fe_from_mont(Fe r, const Fe a, const ZkModulus& M) {
+    Fe one;
+    fe_set_zero(one);
+    one[0] = 1u;
+    fe_mont_mul(r, a, one, M);
+}
+
+// r = k * a mod p for a small constant k >= 1 (repeated addition)
+template <int K>
+__device__ __forceinline__ void fe_mul_small(Fe r, const Fe a, const ZkModulus& M) {
+    Fe acc;
+    fe_copy(acc, a);
+#pragma unroll
+    for (int i = 1; i < K; ++i) fe_add(acc, acc, a, M);
+    fe_copy(r, acc);
+}
+
+// r = a^(p-2) = a^-1 mod p (Montgomery in and out; 0 maps to 0).  The
+// exponent is the same for every thread, so the loop does not diverge.
+__device__ __forceinline__ void fe_inv(Fe r, const Fe a, const ZkModulus& M) {
+    uint32_t e[ZK_NL];
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) e[i] = M.p[i];
+    e[0] -= 2u;  // every modulus here has p[0] >= 2
+    Fe acc;
+    fe_copy(acc, M.one);
+    for (int i = ZK_NL * 32 - 1; i >= 0; --i) {
+        fe_mont_mul(acc, acc, acc, M);
+        if ((e[i >> 5] >> (i & 31)) & 1u) fe_mont_mul(acc, acc, a, M);
+    }
+    fe_copy(r, acc);
+}
+
+__device__ __forceinline__ void fe_load(Fe r, const uint32_t* g) {
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) r[i] = g[i];
+}
+
+__device__ __forceinline__ void fe_store(uint32_t* g, const Fe a) {
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) g[i] = a[i];
+}

@@ -1,0 +1,538 @@
+"""Batched elliptic-curve operations on limb tensors: the port's
+counterpart of ``zkecdsa_tpu/ops/curve_ops.py``.
+
+A batch of points is a canonical ``int32`` tensor ``[..., C, 9]`` (C = 3
+projective coordinates for the Weierstrass curves, 4 extended coordinates
+for Tom-256; see ops/field.py).  The formulas are the reference package's,
+operation for operation: RCB15 complete addition for a = -3 and HWCD08
+unified addition in extended coordinates, plus the mixed add against
+affine comb-table rows.  So the plain versions here, the kernels in
+``csrc/`` and the reference package reach the same canonical projective
+coordinates wherever they take the same sequence of point operations.
+
+Plain versions (``CurveOps`` methods) run on any device in plain PyTorch;
+inside a method the coordinates stay in the field's redundant working form
+and are canonicalised once at the end.  The kernel wrappers
+(:func:`ec_add`, :func:`to_affine`, :func:`straus_msm`,
+:func:`comb_mixed`) take the plain version for a CPU tensor and launch
+their kernel for any other, or raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from .field import NLIMBS, P256_P, TOM_P, WAR_P, FieldT
+
+__all__ = [
+    "CurveOps",
+    "WeierOps",
+    "EdwardsOps",
+    "p256_ops",
+    "tom_ops",
+    "war_ops",
+    "nibble_digits",
+    "byte_digits",
+    "ec_add",
+    "to_affine",
+    "straus_msm",
+    "comb_mixed",
+    "sum_reduce",
+]
+
+WINDOW = 4
+NDIGITS_256 = 64  # 256-bit scalars, 4-bit windows
+TABLE = 1 << WINDOW
+
+
+def nibble_digits(scalars, width: int = NDIGITS_256) -> np.ndarray:
+    """Base-16 digits, most significant first: [N, width] int32.
+    Vectorized via a big-endian byte view (width must be even)."""
+    nbytes = width // 2
+    buf = b"".join(int(s).to_bytes(nbytes, "big") for s in scalars)
+    by = np.frombuffer(buf, dtype=np.uint8).reshape(len(scalars), nbytes)
+    out = np.empty((len(scalars), width), dtype=np.int32)
+    out[:, 0::2] = by >> 4
+    out[:, 1::2] = by & 0xF
+    return out
+
+
+def byte_digits(scalars, width: int = 32) -> np.ndarray:
+    """Base-256 digits, LEAST significant first: [N, width] int32 (the comb
+    fixed-base path's digit order)."""
+    buf = b"".join(int(s).to_bytes(width, "little") for s in scalars)
+    by = np.frombuffer(buf, dtype=np.uint8).reshape(len(scalars), width)
+    return by.astype(np.int32)
+
+
+class CurveOps:
+    """Shared machinery; subclasses provide the group law in the field's
+    working form (``_wadd``/``_wdbl`` on [..., C, W] int64 digits)."""
+
+    NCOORD: int = 3
+    curve_id: int = -1  # csrc/curve.cuh ZK_CURVE_*
+
+    def __init__(self, field: FieldT, group) -> None:
+        self.f = field
+        self.group = group  # host group for unpack
+
+    # -- subclass interface -------------------------------------------------
+    def _wadd(self, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _wdbl(self, P: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def identity_ints(self) -> list[int]:
+        raise NotImplementedError
+
+    def _host_coords(self, pt) -> list[int]:
+        raise NotImplementedError
+
+    def _host_point(self, coords: list[int]):
+        raise NotImplementedError
+
+    # -- representation ----------------------------------------------------
+    def identity(self, batch_shape: tuple = (), device=None) -> torch.Tensor:
+        ident = self.f.pack(self.identity_ints(), device)
+        return ident.expand(tuple(batch_shape) + ident.shape)
+
+    def _work(self, P: torch.Tensor) -> torch.Tensor:
+        return self.f.to_work(P)
+
+    def _canon(self, Pw: torch.Tensor) -> torch.Tensor:
+        return self.f.canon(Pw)
+
+    def _const(self, v: int, device) -> torch.Tensor:
+        return self.f.to_work(self.f.const(v, device))
+
+    def pack_points(self, pts, device=None) -> torch.Tensor:
+        """Host curve points -> [N, C, 9] canonical limbs."""
+        cols = list(zip(*(self._host_coords(pt) for pt in pts))) if pts else [[]] * self.NCOORD
+        t = torch.stack([self.f.pack(c) for c in cols], dim=1) if pts else torch.zeros(
+            (0, self.NCOORD, NLIMBS), dtype=torch.int32
+        )
+        return t.to(device or "cpu")
+
+    def unpack_points(self, arr: torch.Tensor) -> list:
+        """[..., C, 9] canonical limbs -> host points."""
+        a = arr.reshape(-1, self.NCOORD, NLIMBS)
+        cols = [self.f.unpack(a[:, k]) for k in range(self.NCOORD)]
+        return [self._host_point(list(c)) for c in zip(*cols)]
+
+    # -- plain versions on canonical limbs -----------------------------------
+    def add(self, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+        return self._canon(self._wadd(self._work(P), self._work(Q)))
+
+    def dbl(self, P: torch.Tensor) -> torch.Tensor:
+        return self._canon(self._wdbl(self._work(P)))
+
+    def select(self, mask: torch.Tensor, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+        """mask ? P : Q, mask shaped like the batch."""
+        return torch.where(mask[..., None, None], P, Q)
+
+    def to_affine(self, P: torch.Tensor):
+        """(x, y, is_infinity) canonical; infinity yields (0, 0).  An
+        element-wise Fermat inverse (no batch-inversion tree)."""
+        f = self.f
+        z = P[..., -1, :]
+        zinv = f.winv(f.to_work(z))
+        x = f.canon(f.wmul(f.to_work(P[..., 0, :]), zinv))
+        y = f.canon(f.wmul(f.to_work(P[..., 1, :]), zinv))
+        return x, y, f.is_zero(z)
+
+    def _wtable(self, Pw: torch.Tensor) -> torch.Tensor:
+        """[..., 16, C, W] window table of small multiples 0..15, built as
+        the reference builds it (entry k = entry k-1 + P from the
+        identity), so the projective coordinates match."""
+        ident = self._work(self.identity(Pw.shape[:-2], Pw.device))
+        out = [ident]
+        for _ in range(TABLE - 1):
+            out.append(self._wadd(out[-1], Pw))
+        return torch.stack(out, dim=-3)
+
+    def table(self, P: torch.Tensor) -> torch.Tensor:
+        return self._canon(self._wtable(self._work(P)))
+
+    def _wsum(self, Pw: torch.Tensor, axis: int) -> torch.Tensor:
+        """Tree sum with exactly n-1 adds; an odd width carries its last
+        element to the next level (the reference's ``sum_reduce``)."""
+        Pw = Pw.movedim(axis, 0)
+        while Pw.shape[0] > 1:
+            h = Pw.shape[0] // 2
+            Pw = torch.cat([self._wadd(Pw[:h], Pw[h : 2 * h]), Pw[2 * h :]], dim=0)
+        return Pw[0]
+
+    def msm_shared(self, points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+        """Straus MSM, the reference's schedule: sum_t s_t * P_t with
+        points [..., T, C, 9] and MSB-first 4-bit digits [..., T, D] ->
+        [..., C, 9].  Per digit column the accumulator is doubled 4x and
+        the T gathered window multiples are tree-summed into it."""
+        tabs = self._wtable(self._work(points))  # [..., T, 16, C, W]
+        W = tabs.shape[-1]
+        batch = tabs.shape[:-4]
+        acc = self._work(self.identity(batch, points.device))
+        d = digits.to(torch.int64)
+        for col in range(d.shape[-1]):
+            for _ in range(4):
+                acc = self._wdbl(acc)
+            idx = d[..., col][..., None, None, None].expand(
+                d.shape[:-1] + (1, self.NCOORD, W)
+            )
+            terms = tabs.gather(-3, idx).squeeze(-3)  # [..., T, C, W]
+            if terms.shape[-3] == 0:
+                continue
+            acc = self._wadd(acc, self._wsum(terms, axis=-3))
+        return self._canon(acc)
+
+
+class WeierOps(CurveOps):
+    """Short Weierstrass, a = -3, homogeneous projective (X:Y:Z); identity
+    (0:1:0).  RCB15 complete formulas (reference ``WeierOps``)."""
+
+    NCOORD = 3
+
+    def __init__(self, field: FieldT, b: int, group, curve_id: int) -> None:
+        super().__init__(field, group)
+        self.b = b
+        self.curve_id = curve_id
+
+    def identity_ints(self) -> list[int]:
+        return [0, 1, 0]
+
+    def _host_coords(self, pt) -> list[int]:
+        return [pt.x, pt.y, pt.z]
+
+    def _host_point(self, c):
+        from ..curves.weier import WeierstrassPoint
+
+        return WeierstrassPoint(self.group, *c)
+
+    def _wadd(self, P, Q):
+        f = self.f
+        b = self._const(self.b, P.device)
+        x1, y1, z1 = P.unbind(-2)
+        x2, y2, z2 = Q.unbind(-2)
+        m0 = f.wmul(x1, x2)
+        m1 = f.wmul(y1, y2)
+        m2 = f.wmul(z1, z2)
+        sxy = f.wsub(f.wsub(f.wmul(f.wadd_lazy(x1, y1), f.wadd_lazy(x2, y2)), m0), m1)
+        syz = f.wsub(f.wsub(f.wmul(f.wadd_lazy(y1, z1), f.wadd_lazy(y2, z2)), m1), m2)
+        sxz = f.wsub(f.wsub(f.wmul(f.wadd_lazy(x1, z1), f.wadd_lazy(x2, z2)), m0), m2)
+        w = f.wsmall(f.wsub(sxz, f.wmul(b, m2)), 3)
+        zc = f.wsub_lazy(m1, w)
+        xc = f.wadd_lazy(m1, w)
+        v = f.wsmall(f.wsub(f.wsub(f.wmul(b, sxz), f.wsmall(m2, 3)), m0), 3)
+        u = f.wsmall(f.wsub(m0, m2), 3)
+        x3 = f.wsub(f.wmul(sxy, xc), f.wmul(syz, v))
+        y3 = f.wadd(f.wmul(xc, zc), f.wmul(u, v))
+        z3 = f.wadd(f.wmul(syz, zc), f.wmul(sxy, u))
+        return torch.stack([x3, y3, z3], dim=-2)
+
+    def _wdbl(self, P):
+        f = self.f
+        b = self._const(self.b, P.device)
+        x, y, z = P.unbind(-2)
+        xx = f.wmul(x, x)
+        yy = f.wmul(y, y)
+        zz = f.wmul(z, z)
+        xy2 = f.wsmall(f.wmul(x, y), 2)
+        xz2 = f.wsmall(f.wmul(x, z), 2)
+        yz2 = f.wsmall(f.wmul(y, z), 2)
+        w = f.wsmall(f.wsub(f.wmul(b, zz), xz2), 3)
+        zc = f.wsub_lazy(yy, w)
+        xc = f.wadd_lazy(yy, w)
+        v = f.wsmall(f.wsub(f.wsub(f.wmul(b, xz2), f.wsmall(zz, 3)), xx), 3)
+        u = f.wsmall(f.wsub(xx, zz), 3)
+        x3 = f.wsub(f.wmul(xy2, zc), f.wmul(yz2, v))
+        y3 = f.wadd(f.wmul(xc, zc), f.wmul(u, v))
+        z3 = f.wsmall(f.wmul(yz2, yy), 4)
+        return torch.stack([x3, y3, z3], dim=-2)
+
+    def neg(self, P: torch.Tensor) -> torch.Tensor:
+        return torch.stack([P[..., 0, :], self.f.neg(P[..., 1, :]), P[..., 2, :]], dim=-2)
+
+    def is_identity(self, P: torch.Tensor) -> torch.Tensor:
+        """(X:Y:Z) == (0:1:0), canonical coordinates: Z == 0."""
+        return self.f.is_zero(P[..., 2, :])
+
+
+class EdwardsOps(CurveOps):
+    """Twisted Edwards extended coordinates (X:Y:T:Z); identity (0:1:0:1).
+    HWCD08 unified formulas (reference ``EdwardsOps``)."""
+
+    NCOORD = 4
+    MIXED_NC = 5  # comb rows: X2, Y2, X2+Y2, d*T2, a*X2
+
+    def __init__(self, field: FieldT, a: int, d: int, group, curve_id: int) -> None:
+        super().__init__(field, group)
+        self.a = a
+        self.d = d
+        self.curve_id = curve_id
+
+    def identity_ints(self) -> list[int]:
+        return [0, 1, 0, 1]
+
+    def _host_coords(self, pt) -> list[int]:
+        return [pt.x, pt.y, pt.t, pt.z]
+
+    def _host_point(self, c):
+        from ..curves.edwards import TEdwardsPoint
+
+        return TEdwardsPoint(self.group, *c)
+
+    def _finish(self, E, F, G, H):
+        f = self.f
+        return torch.stack([f.wmul(E, F), f.wmul(G, H), f.wmul(E, H), f.wmul(F, G)], dim=-2)
+
+    def _wadd(self, P, Q):
+        f = self.f
+        x1, y1, t1, z1 = P.unbind(-2)
+        x2, y2, t2, z2 = Q.unbind(-2)
+        A = f.wmul(x1, x2)
+        B = f.wmul(y1, y2)
+        C = f.wmul(self._const(self.d, P.device), f.wmul(t1, t2))
+        D = f.wmul(z1, z2)
+        E = f.wsub_lazy(f.wsub(f.wmul(f.wadd_lazy(x1, y1), f.wadd_lazy(x2, y2)), A), B)
+        F = f.wsub_lazy(D, C)
+        G = f.wadd_lazy(D, C)
+        H = f.wsub_lazy(B, f.wmul(self._const(self.a, P.device), A))
+        return self._finish(E, F, G, H)
+
+    def _wdbl(self, P):
+        f = self.f
+        x, y, _, z = P.unbind(-2)
+        A = f.wmul(x, x)
+        B = f.wmul(y, y)
+        C = f.wsmall(f.wmul(z, z), 2)
+        D = f.wmul(self._const(self.a, P.device), A)
+        xy = f.wadd_lazy(x, y)
+        E = f.wsub_lazy(f.wsub(f.wmul(xy, xy), A), B)
+        G = f.wadd(D, B)
+        F = f.wsub_lazy(G, C)
+        H = f.wsub_lazy(D, B)
+        return self._finish(E, F, G, H)
+
+    def _wadd_mixed(self, P, T):
+        f = self.f
+        x1, y1, t1, z1 = P.unbind(-2)
+        tx, ty, txy, tdt, tax = T.unbind(-2)
+        A = f.wmul(x1, tx)
+        B = f.wmul(y1, ty)
+        C = f.wmul(t1, tdt)
+        E = f.wsub_lazy(f.wsub(f.wmul(f.wadd_lazy(x1, y1), txy), A), B)
+        F = f.wsub_lazy(z1, C)
+        G = f.wadd_lazy(z1, C)
+        H = f.wsub_lazy(B, f.wmul(x1, tax))
+        return self._finish(E, F, G, H)
+
+    def add_mixed(self, P: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+        """P (extended [..., 4, 9]) + T (comb rows [..., 5, 9])."""
+        return self._canon(self._wadd_mixed(self._work(P), self._work(T)))
+
+    def mul_comb_mixed(self, comb: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
+        """Fixed-base multiply from mixed comb tables [D, 256, 5, 9]
+        (several bases' tables concatenated along D) and LSB-first byte
+        digits [..., D] -> [..., 4, 9]: one add_mixed per window, in
+        window order."""
+        d = d8.to(torch.int64)
+        acc = self._work(self.identity(d.shape[:-1], comb.device))
+        for j in range(comb.shape[0]):
+            acc = self._wadd_mixed(acc, self._work(comb[j][d[..., j]]))
+        return self._canon(acc)
+
+    def comb_rows(self, x: int, y: int) -> list[int]:
+        """The five mixed-add rows of one affine point (x, y)."""
+        p = self.f.p
+        return [x, y, (x + y) % p, self.d * (x * y % p) % p, self.a * x % p]
+
+    def neg(self, P: torch.Tensor) -> torch.Tensor:
+        f = self.f
+        return torch.stack(
+            [f.neg(P[..., 0, :]), P[..., 1, :], f.neg(P[..., 2, :]), P[..., 3, :]], dim=-2
+        )
+
+    def is_identity(self, P: torch.Tensor) -> torch.Tensor:
+        """(X:Y:T:Z) == (0:1:0:1) projectively, canonical coordinates:
+        X == 0 and Y == Z."""
+        f = self.f
+        return f.is_zero(P[..., 0, :]) & f.equal(P[..., 1, :], P[..., 3, :])
+
+
+def _make_ops():
+    from ..curves import instances as inst
+
+    p256_ops = WeierOps(P256_P, inst.p256.b, inst.p256, 0)
+    war_ops = WeierOps(WAR_P, inst.war256.b, inst.war256, 1)
+    tom_ops = EdwardsOps(
+        TOM_P, inst.tomEdwards256.a, inst.tomEdwards256.d, inst.tomEdwards256, 2
+    )
+    return p256_ops, tom_ops, war_ops
+
+
+p256_ops, tom_ops, war_ops = _make_ops()
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_points(ops: CurveOps, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel operand on {t.device}, expected a CUDA tensor")
+        if t.dtype != torch.int32 or tuple(t.shape[-2:]) != (ops.NCOORD, NLIMBS):
+            raise ValueError(
+                f"expected int32 [..., {ops.NCOORD}, {NLIMBS}] points, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+
+
+def ec_add(ops: CurveOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Complete point addition over canonical [..., C, 9] points (batch
+    dims broadcast).  Kernel ``csrc/ec.cu`` (replaces
+    ``zkecdsa_tpu/ops/pallas_field.py:214 pallas_ec_add``); bound by 32-bit
+    integer multiply-adds.  A CPU tensor takes ``ops.add``."""
+    if P.device.type == "cpu":
+        return ops.add(P, Q)
+    lib = _build.load()
+    _check_points(ops, P, Q)
+    P, Q = (t.contiguous() for t in torch.broadcast_tensors(P, Q))
+    out = torch.empty_like(P)
+    B = P.numel() // (ops.NCOORD * NLIMBS)
+    code = lib.zk_ec_add(ops.curve_id, B, P.data_ptr(), Q.data_ptr(), out.data_ptr(), _stream(P))
+    _build.check(code, "zk_ec_add")
+    ec_add.launches += 1
+    return out
+
+
+ec_add.launches = 0
+
+
+def to_affine(ops: CurveOps, P: torch.Tensor):
+    """(x, y, is_infinity) of canonical [..., C, 9] points; infinity gives
+    (0, 0).  Kernel ``csrc/ec.cu`` (replaces ``curve_ops.py:459
+    to_affine`` + ``canon``): an element-wise Fermat inverse per point.  A
+    CPU tensor takes ``ops.to_affine``."""
+    if P.device.type == "cpu":
+        return ops.to_affine(P)
+    lib = _build.load()
+    _check_points(ops, P)
+    P = P.contiguous()
+    batch = P.shape[:-2]
+    x = torch.empty(batch + (NLIMBS,), dtype=torch.int32, device=P.device)
+    y = torch.empty_like(x)
+    inf = torch.empty(batch, dtype=torch.uint8, device=P.device)
+    code = lib.zk_to_affine(
+        ops.curve_id, inf.numel(), P.data_ptr(), x.data_ptr(), y.data_ptr(),
+        inf.data_ptr(), _stream(P),
+    )
+    _build.check(code, "zk_to_affine")
+    to_affine.launches += 1
+    return x, y, inf.bool()
+
+
+to_affine.launches = 0
+
+
+def sum_reduce(ops: CurveOps, P: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Tree sum of points along an axis through :func:`ec_add`: exactly
+    n-1 adds, an odd width carries its last element up a level."""
+    P = P.movedim(axis, 0)
+    if P.shape[0] == 0:
+        return ops.identity(P.shape[1:-2], P.device)
+    while P.shape[0] > 1:
+        h = P.shape[0] // 2
+        P = torch.cat([ec_add(ops, P[:h], P[h : 2 * h]), P[2 * h :]], dim=0)
+    return P[0]
+
+
+# threads that keep every SM of the card busy with a few warps
+_MSM_THREADS = 132 * 128
+
+
+def msm_chunk(R: int, T: int) -> int:
+    """Terms per thread in :func:`straus_msm`: enough threads to fill the
+    card, and between 8 and 32 terms so each accumulator's doublings are
+    shared by a chunk (a ladder per term costs ~4x the point operations)."""
+    return max(8, min(32, (R * T) // _MSM_THREADS))
+
+
+def straus_table_bytes(ops: CurveOps, R: int, T: int) -> int:
+    """Scratch bytes :func:`straus_msm` needs for its window tables."""
+    return R * T * TABLE * ops.NCOORD * NLIMBS * 4
+
+
+def straus_msm(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Per row, sum_t s_t * P_t: points [R, T, C, 9] canonical, digits
+    [R, T, 64] MSB-first nibbles (uint8) -> [R, C, 9].
+
+    Kernel ``csrc/msm.cu`` (replaces ``zkecdsa_tpu/ops/curve_ops.py:393
+    msm_shared``): one thread per chunk of terms accumulates its partial
+    sum; the partials of a row are tree-summed with :func:`ec_add`.  The
+    kernel adds in another order than the reference's schedule, so its
+    projective coordinates differ from ``ops.msm_shared``'s; the group
+    element is the same.  A CPU tensor takes ``ops.msm_shared``."""
+    if points.device.type == "cpu":
+        return ops.msm_shared(points, digits)
+    lib = _build.load()
+    _check_points(ops, points)
+    R, T = points.shape[0], points.shape[1]
+    if digits.shape != (R, T, NDIGITS_256) or digits.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 digits [{R}, {T}, 64], got {digits.dtype} {tuple(digits.shape)}")
+    if digits.device != points.device:
+        raise ValueError("points and digits on different devices")
+    if T == 0:
+        return ops.identity((R,), points.device).contiguous()
+    points, digits = points.contiguous(), digits.contiguous()
+    chunk = msm_chunk(R, T)
+    nchunks = -(-T // chunk)
+    table = torch.empty(
+        straus_table_bytes(ops, R, T) // 4, dtype=torch.int32, device=points.device
+    )
+    partial = torch.empty((R, nchunks, ops.NCOORD, NLIMBS), dtype=torch.int32, device=points.device)
+    code = lib.zk_straus_msm(
+        ops.curve_id, R, T, chunk, points.data_ptr(), digits.data_ptr(),
+        table.data_ptr(), partial.data_ptr(), _stream(points),
+    )
+    _build.check(code, "zk_straus_msm")
+    straus_msm.launches += 1
+    return sum_reduce(ops, partial, axis=1)
+
+
+straus_msm.launches = 0
+
+
+def comb_mixed(tabs: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
+    """g*v + h*r on Tom-256: concatenated mixed comb tables [64, 256, 5, 9]
+    and LSB-first byte digits [..., 64] (uint8; v's 32 then r's 32) ->
+    [..., 4, 9].  Kernel ``csrc/comb.cu`` (replaces ``curve_ops.py:731
+    double_mul_comb_mixed``).  A CPU tensor takes
+    ``tom_ops.mul_comb_mixed``."""
+    if d8.device.type == "cpu":
+        return tom_ops.mul_comb_mixed(tabs, d8)
+    lib = _build.load()
+    if tuple(tabs.shape) != (64, 256, EdwardsOps.MIXED_NC, NLIMBS) or tabs.dtype != torch.int32:
+        raise ValueError(f"expected int32 [64, 256, 5, 9] tables, got {tabs.dtype} {tuple(tabs.shape)}")
+    if d8.dtype != torch.uint8 or d8.shape[-1] != 64:
+        raise ValueError(f"expected uint8 [..., 64] digits, got {d8.dtype} {tuple(d8.shape)}")
+    if tabs.device != d8.device or d8.device.type != "cuda":
+        raise ValueError("comb_mixed operands must be on one CUDA device")
+    tabs, d8 = tabs.contiguous(), d8.contiguous()
+    batch = d8.shape[:-1]
+    out = torch.empty(batch + (4, NLIMBS), dtype=torch.int32, device=d8.device)
+    B = out.numel() // (4 * NLIMBS)
+    code = lib.zk_comb_mixed(B, tabs.data_ptr(), d8.data_ptr(), out.data_ptr(), _stream(d8))
+    _build.check(code, "zk_comb_mixed")
+    comb_mixed.launches += 1
+    return out
+
+
+comb_mixed.launches = 0

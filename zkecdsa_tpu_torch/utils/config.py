@@ -1,0 +1,65 @@
+"""Configuration.
+
+The reference exposes one knob (secLevel, default 80;
+reference src/zkpAttestList.ts:88) plus compile-time curve constants.
+Every field here is read by the code:
+
+* ``sec_level``   - default for :func:`zkp_attest_list.generate_params_list`.
+* ``verify_rounds`` - the top-level verifier's spot-check count
+  (zkpAttestList.ts:177 hardcodes 20; read by both the scalar verifier and
+  ``protocol.batch_verify``).
+* ``hardened_pedersen`` / ``hardened_gk`` - opt-in hardened security
+  modes, read by ``commit.pedersen`` and the GK prove/verify paths
+  respectively; see the dataclass comments.
+
+Env overrides: ``ZKECDSA_<FIELD>`` (e.g. ZKECDSA_VERIFY_ROUNDS=80 makes the
+verifier check every round).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+__all__ = ["Config", "get_config", "set_config"]
+
+
+@dataclasses.dataclass
+class Config:
+    sec_level: int = 80  # prover rounds (zkpAttestList.ts:88)
+    verify_rounds: int = 20  # top-level verifier spot-checks (":177")
+    # Hardened security modes (both default OFF for wire compatibility
+    # with the reference's flagged-insecure choices):
+    # * hardened_pedersen - derive the Pedersen base h by deterministic
+    #   try-and-increment hash-to-curve instead of h = r*g with known
+    #   dlog (answers pedersen.ts:62 "todo(correctness): we must generate
+    #   h without using scalar mult").
+    # * hardened_gk - bind the GK one-out-of-many challenge to the
+    #   statement (the commitment + the public ring values), answering
+    #   gk.ts:178 "TODO: hash in the statement as well".  Proofs made
+    #   with the flag verify only with the flag (both sides read it).
+    hardened_pedersen: int = 0
+    hardened_gk: int = 0
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        """Defaults overridden by ``ZKECDSA_<FIELD>`` env vars (all fields
+        are ints)."""
+        cfg = cls()
+        for field in dataclasses.fields(cls):
+            env = os.environ.get("ZKECDSA_" + field.name.upper())
+            if env is not None:
+                setattr(cfg, field.name, int(env))
+        return cfg
+
+
+_config = Config.from_env()
+
+
+def get_config() -> Config:
+    return _config
+
+
+def set_config(cfg: Config) -> None:
+    global _config
+    _config = cfg
