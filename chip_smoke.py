@@ -11,14 +11,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``zkecdsa_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card, on the
-   same inputs and exactly (integers: tolerance 0), at the shapes the
-   verifier gives it, and time both with CUDA events;
-4. the slice: ``BatchVerifier.verify`` on N=256 proofs at ring 2^12 (K
-   distinct host-proved proofs, tiled), one warm-up and three timed reps;
-   the kernel launch counts are read over the first timed rep.  Then one
-   proof's GK response is tampered: exactly that position must fail
-   (the per-row attribution path), and the host scalar verifier must agree;
-5. print the ``kernels`` JSON line, then the last line
+   same inputs and exactly (integers: tolerance 0), at every shape the
+   prover gives it and at the verifier's, and time both with CUDA events;
+   the launches per prove at the checked shapes must add up to the counts
+   of phase 4a;
+4a. the prover: ``BatchProver.prove`` on N=256 distinct instances at ring
+   2^12 (instance i proves key i of the ring on tape SEED+100+i), one
+   warm-up and three timed reps on the same tapes, each giving the same
+   proof bytes; proofs 0..7 must equal, byte for byte, those of the host
+   prover ``prove_signature_list`` run in worker processes meanwhile; the
+   launch counts are read over the first timed rep;
+4b. the verifier: ``BatchVerifier.verify`` on those 256 proofs, one
+   warm-up and three timed reps, launch counts over the first; then one
+   proof's GK response is tampered: exactly that position must fail (the
+   per-row attribution path), and the host scalar verifier must agree;
+5. print the ``kernels`` JSON line (per kernel: its first checked shape's
+   times, every shape's record under ``shapes``, and ``prove_ms``, the
+   kernel time of one prove summed over its shapes), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA (or without the package beside it) it exits non-zero and
@@ -36,10 +45,10 @@ import subprocess
 import sys
 import time
 
-N = 256  # proofs per verify batch (BatchVerifier.MAX_CHUNK)
+N = 256  # proofs per batch (BatchProver.MAX_CHUNK, BatchVerifier.MAX_CHUNK)
 RING = 4096  # ring 2^12
-K = 8  # distinct host-proved proofs, tiled to N
-REPS = 3  # timed verify reps
+K = 8  # proofs also made by the host prover, compared byte for byte
+REPS = 3  # timed reps of prove and of verify
 TAMPER_AT = 37  # batch position whose GK response f[0] is tampered
 SEED = 2024
 DEVICE = "cuda"
@@ -48,6 +57,8 @@ FIELD_B = 65536  # field_mul rows per modulus
 EC_B = 16384  # ec_add point pairs per curve
 SMALL_MSM = (4, 1024)  # straus_msm [R, T] on both curves
 MSM = (16, 8192)  # the combined Tom-256 MSM's [R, T] at N=256, ring 2^12
+ROUNDS = 80  # exp rounds per proof (sec_level)
+CHORD_K = 10240  # phase-B rows: ~N*40 even rounds, a multiple of 512
 
 # Bounds (H100 SXM, NVIDIA data sheet, at the full 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -177,7 +188,8 @@ def _rescaled(ops, pts, n: int, rs, device):
 
 
 def check_kernels(dev, dparams, rs, log) -> dict:
-    """Phase 3.  Returns {name: entry} without the launch counts."""
+    """Phase 3, every kernel of slice 1 at the verifier's shapes.  Returns
+    {name: shape record} (see :func:`_case`)."""
     import numpy as np
     import torch
 
@@ -245,7 +257,8 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     ms = _cuda_ms(lambda: ring_fold(vals, fs, xfs), 10)
     bound, by = _bound(2 * N * (RING - 1), (RING + 2 * N * n + N) * pb)
     entries["field_mul"] = dict(
-        call=f"ring_fold N={N} ring={RING}: {n} pair-form launches",
+        call=f"pair form through ring_fold [{N}, {RING}] (verifier GK), {n} launches",
+        launches_per_call=n, launches_per_prove=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
     )
     log(f"field_mul pair form (ring_fold N={N}, ring {RING}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
@@ -286,7 +299,7 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     ms = _cuda_ms(lambda: ec_add(p256_ops, P, Q), 20)
     bound, by = _bound(MM_WEIER_ADD * N * S, 3 * N * S * C_P * pb)
     entries["ec_add"] = dict(
-        call=f"P-256 [{N}, {S}] (vphase T1 = T0 + Q)",
+        call=f"P-256 [{N}, {S}] (vphase T1 = T0 + Q)", launches_per_call=1, launches_per_prove=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
     )
     log(f"ec_add p256 [{N},{S}]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
@@ -307,7 +320,7 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     nb = N * S * 2
     bound, by = _bound((inv_mm + 2) * nb, nb * (C_P * pb + 2 * pb + 1))
     entries["to_affine"] = dict(
-        call=f"P-256 [{N}, {S}, 2] (vphase)",
+        call=f"P-256 [{N}, {S}, 2] (vphase)", launches_per_call=1, launches_per_prove=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
     )
 
@@ -344,7 +357,8 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         MM_EDW_ADD * adds + MM_EDW_DBL * dbls, R * T * (C_T * pb + 64) + R * C_T * pb
     )
     entries["straus_msm"] = dict(
-        call=f"Tom-256 [{R}, {T}] (combined identity MSM)",
+        call=f"Tom-256 [{R}, {T}] (combined identity MSM)", launches_per_call=1,
+        launches_per_prove=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
     )
     log(f"straus_msm tomEdwards256 [{R}, {T}]: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, exact")
@@ -362,11 +376,257 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     rows = N * S * 2
     bound, by = _bound(MM_EDW_MIXED * 64 * rows, tabs.numel() * 4 + d8.numel() + rows * C_T * pb)
     entries["comb_mixed"] = dict(
-        call=f"Tom-256 g*v + h*r, [{N}, {S}, 2] rows (vphase commits)",
+        call=f"Tom-256 g*v + h*r, [{N}, {S}, 2] rows (vphase commits)", launches_per_call=1,
+        launches_per_prove=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
     )
     log(f"comb_mixed [{N},{S},2]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
     return entries
+
+
+def _pairs(got, plain):
+    """(kernel, plain) tensor pairs of one result: a tensor, or the (x, y,
+    is_infinity) of ``to_affine``, or a tuple of results."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        return [(got, plain)]
+    return [(a.to(torch.int32), b.to(torch.int32)) if a.dtype == torch.bool else (a, b)
+            for a, b in zip(got, plain)]
+
+
+def _case(name, call, kernel, plain, bound, reps, log, per_prove, per_call=1):
+    """Hold ``kernel()`` against ``plain()`` exactly and time both: the
+    kernel's result and one ``shapes`` record of the kernels line.  One
+    timed call makes ``per_call`` launches; one prove makes ``per_prove``
+    at this shape."""
+    got = kernel()
+    want, plain_ms = _once_ms(plain)
+    err = _exact(f"{name} {call}", _pairs(got, want))
+    ms = _cuda_ms(kernel, reps)
+    log(f"{name} {call}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, exact")
+    b, by = bound
+    return got, dict(call=call, launches_per_call=per_call, launches_per_prove=per_prove,
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+
+def _affine_bound(ops, B: int):
+    """Bound of ``to_affine`` on B points: a Fermat inverse and two
+    products per point; C coordinates in, x, y and a flag out."""
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+
+    e = ops.f.p - 2
+    inv_mm = e.bit_length() - 1 + bin(e).count("1") - 1
+    pb = NLIMBS * 4
+    return _bound((inv_mm + 2) * B, B * (ops.NCOORD * pb + 2 * pb + 1))
+
+
+def _add_bound(ops, B: int):
+    """Bound of ``ec_add`` on B point pairs."""
+    from zkecdsa_tpu_torch.ops.curve_ops import p256_ops
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+
+    mm = MM_WEIER_ADD if ops is p256_ops else MM_EDW_ADD
+    return _bound(mm * B, 3 * B * ops.NCOORD * NLIMBS * 4)
+
+
+def check_prover_kernels(dev, dparams, rs, log) -> dict:
+    """Phase 3, every kernel of one prove at N=256, ring 2^12, at the
+    shapes the prover gives it.  Returns {name: [shape record, ...]}; the
+    ``launches_per_prove`` of a kernel's records sum to its count in one
+    prove (checked against phase 4a)."""
+    import numpy as np
+    import torch
+
+    from zkecdsa_tpu_torch.curves.instances import p256
+    from zkecdsa_tpu_torch.ops.curve_ops import (
+        comb4_bases,
+        comb4_entries,
+        comb_mixed,
+        comb_weier,
+        ec_add,
+        mul_comb4,
+        p256_ops,
+        shamir,
+        to_affine,
+        tom_ops,
+        window_table,
+    )
+    from zkecdsa_tpu_torch.ops.field import (
+        CHORD_IN,
+        NLIMBS,
+        TOM_N,
+        chord,
+        chord_plain,
+        field_mul_plain,
+        ring_fold,
+    )
+
+    shapes: dict[str, list] = {}
+
+    def case(name, call, kernel, plain, bound, reps, per_prove, per_call=1):
+        got, rec = _case(name, call, kernel, plain, bound, reps, log, per_prove, per_call)
+        shapes.setdefault(name, []).append(rec)
+        return got
+
+    ops = p256_ops
+    pb = NLIMBS * 4
+    pt_b = 3 * pb  # bytes per P-256 point
+    K = CHORD_K
+    n = RING.bit_length() - 1
+    G = p256.generator()
+    host = [G.mul(p256.new_scalar(int.from_bytes(rs.bytes(32), "little") % p256.order)) for _ in range(64)]
+    P = _rescaled(ops, host, N, rs, dev)
+
+    def u8(*shape, hi):
+        return torch.from_numpy(rs.randint(0, hi, size=shape).astype(np.uint8)).to(dev)
+
+    # -- phase A: window tables of pk and R (15 ec_add each), D (2) --------
+    tab = window_table(ops, P)
+    _exact("window_table", [(tab, ops.table(P))])
+    t7 = tab[:, 7].contiguous()
+    case("ec_add", f"P-256 [{N}] (window tables, D)", lambda: ec_add(ops, t7, P),
+         lambda: ops.add(t7, P), _add_bound(ops, N), 20, 32)
+
+    # -- shamir: the [N] call (shared G table, per-row tables) and the
+    #    [N, 2] call (per-row tables, one shared h table, zero digits) -----
+    tG, th = dparams["G"], dparams["h_n"]
+    d1, d2 = u8(N, 64, hi=16), u8(N, 64, hi=16)
+    d1[0] = 0
+    tp = torch.stack([tab, tG.expand_as(tab)], dim=1)
+    dP, dQ = u8(N, 2, 64, hi=16), u8(N, 2, 64, hi=16)
+    dQ[:, 1] = 0
+
+    def run_shamir(fn):
+        return fn(tG, d1, tab, d2), fn(tp, dP, th, dQ)
+
+    rows = 3 * N
+    R, cq = case(
+        "shamir", f"P-256 [{N}] + [{N}, 2] rows (phase A: R, then comS1 and Q)",
+        lambda: run_shamir(shamir), lambda: run_shamir(ops.double_mul_tables),
+        _bound(rows * 64 * (4 * MM_WEIER_DBL + 2 * MM_WEIER_ADD),
+               3 * N * 16 * pt_b + 2 * 16 * pt_b + 2 * rows * 64 + rows * pt_b),
+        5, 2, 2,
+    )
+
+    # -- comb4: position bases, entries, then N x 80 scalars ---------------
+    bases = case(
+        "comb4_bases", f"P-256 [{N}] bases -> [{N}, 64, 3, 9] (252 doublings each)",
+        lambda: comb4_bases(P), lambda: ops.comb4_bases(P),
+        _bound(N * 63 * 4 * MM_WEIER_DBL, N * pt_b + N * 64 * pt_b), 5, 1,
+    )
+    tab4 = case(
+        "comb4_entries", f"P-256 [{N}, 64] position bases -> [{N}, 64, 16, 3, 9]",
+        lambda: comb4_entries(bases), lambda: ops.comb4_entries(bases),
+        _bound(N * 64 * (3 * MM_WEIER_DBL + 14 * MM_WEIER_ADD), N * 64 * 17 * pt_b), 10, 1,
+    )
+    _exact("comb4_table", [(tab4, ops.comb4_table(P))])
+    dig = u8(N, ROUNDS, 64, hi=16)
+    dig[0, 0] = 0
+    T = case(
+        "mul_comb4", f"P-256 [{N}, {ROUNDS}] scalars from per-base tables (phase A T)",
+        lambda: mul_comb4(tab4, dig), lambda: ops.mul_comb4(tab4, dig),
+        _bound(N * ROUNDS * 64 * MM_WEIER_ADD, tab4.numel() * 4 + dig.numel() + N * ROUNDS * pt_b),
+        5, 1,
+    )
+    if not bool(ops.is_identity(T[0, 0])):
+        raise AssertionError("mul_comb4: zero digits do not give the identity")
+
+    # -- comb_weier: Hc [N] and Hr [N, 80] on the comb table of h ----------
+    comb = dparams["h_n8"]
+    c1, c2 = u8(N, 32, hi=256), u8(N, ROUNDS, 32, hi=256)
+    c1[0] = 0
+
+    def run_comb(fn):
+        return fn(comb, c1), fn(comb, c2)
+
+    rows = N * (ROUNDS + 1)
+    Hc, Hr = case(
+        "comb_weier", f"P-256 [{N}] + [{N}, {ROUNDS}] rows (phase A Hc, Hr = r*h)",
+        lambda: run_comb(comb_weier), lambda: run_comb(ops.mul_comb),
+        _bound(rows * 32 * MM_WEIER_ADD, comb.numel() * 4 + rows * (32 + pt_b)), 5, 2, 2,
+    )
+    if not bool(ops.is_identity(Hc[0])):
+        raise AssertionError("comb_weier: zero digits do not give the identity")
+
+    # -- phase A: A = T + Hr, then one P-256 affine pass [N, 3 + 80 + 80] --
+    A = case("ec_add", f"P-256 [{N}, {ROUNDS}] (A = T + Hr)", lambda: ec_add(ops, T, Hr),
+             lambda: ops.add(T, Hr), _add_bound(ops, N * ROUNDS), 20, 1)
+    small = torch.stack([R, cq[:, 1], cq[:, 0]], dim=1)
+    aff_in = torch.cat([small, T, A], dim=1)
+    case("to_affine", f"P-256 [{N}, {aff_in.shape[1]}] (phase A)", lambda: to_affine(ops, aff_in),
+         lambda: ops.to_affine(aff_in), _affine_bound(ops, aff_in.shape[:-2].numel()), 10, 1)
+
+    # -- phase B: T1 = T + D over [K] rows, its affine pass, the chord pass -
+    Te, De = T.reshape(-1, 3, NLIMBS)[:K], A.reshape(-1, 3, NLIMBS)[:K]
+    T1 = case("ec_add", f"P-256 [{K}] (phase B T1 = T + D)", lambda: ec_add(ops, Te, De),
+              lambda: ops.add(Te, De), _add_bound(ops, K), 20, 1)
+    case("to_affine", f"P-256 [{K}] (phase B T1)", lambda: to_affine(ops, T1),
+         lambda: ops.to_affine(T1), _affine_bound(ops, K), 10, 1)
+    q = TOM_N.p
+    x = TOM_N.pack(
+        [int.from_bytes(rs.bytes(40), "little") % q for _ in range(K * len(CHORD_IN))], dev
+    ).reshape(K, len(CHORD_IN), -1)
+    x[0, 2] = x[0, 0]
+    e = q - 2
+    inv_mm = e.bit_length() - 1 + bin(e).count("1") - 1
+    y = case("chord", f"[{K}] phase-B rows mod the Tom-256 order", lambda: chord(x),
+             lambda: chord_plain(x), _bound(K * (inv_mm + 3 + 16), x.numel() * 4 + K * 23 * pb), 10, 1)
+    if not bool(TOM_N.is_zero(y[0, 1])):
+        raise AssertionError("chord: the inverse of 0 is not 0")
+    row = [int(v) for v in TOM_N.unpack(x[1])]
+    i7 = (row[2] - row[0]) % q
+    if TOM_N.unpack(y[1, :2]) != [i7, pow(i7, q - 2, q)]:
+        raise AssertionError("chord disagrees with Python integers")
+
+    # -- Tom-256 commitments: phase A [N, 162], phase B [K, 34], GK [N*4n] --
+    tabs = torch.cat([dparams["g_t8"], dparams["h_t8"]], dim=0)
+    C_T = tom_ops.NCOORD
+
+    def commits(call, batch):
+        d8 = u8(*batch, 64, hi=256)
+        d8.view(-1, 64)[0] = 0  # g*0 + h*0: the identity
+        B = d8.shape[:-1].numel()
+        out = case("comb_mixed", call, lambda: comb_mixed(tabs, d8),
+                   lambda: tom_ops.mul_comb_mixed(tabs, d8),
+                   _bound(MM_EDW_MIXED * 64 * B, tabs.numel() * 4 + d8.numel() + B * C_T * pb),
+                   3, 1)
+        if not bool(tom_ops.is_identity(out.view(-1, C_T, NLIMBS)[0])):
+            raise AssertionError("comb_mixed: zero digits do not give the identity")
+        return out
+
+    allC = commits(f"Tom-256 [{N}, 162] (phase A commits)", (N, 162))
+    cm = commits(f"Tom-256 [{K}, 34] (phase B commits)", (K, 34))
+    gk = commits(f"Tom-256 [{N * 4 * n}] (GK commits)", (N * 4 * n,))
+    # the phase-B combinations: [K, 5] differences, then cintX [K]
+    sP, sQ = cm[:, :5].contiguous(), tom_ops.neg(cm[:, 5:10]).contiguous()
+    s5 = case("ec_add", f"Tom-256 [{K}, 5] (phase B differences)", lambda: ec_add(tom_ops, sP, sQ),
+              lambda: tom_ops.add(sP, sQ), _add_bound(tom_ops, K * 5), 20, 1)
+    cP, cQ = s5[:, 3].contiguous(), cm[:, 0].contiguous()
+    case("ec_add", f"Tom-256 [{K}] (phase B cintX)", lambda: ec_add(tom_ops, cP, cQ),
+         lambda: tom_ops.add(cP, cQ), _add_bound(tom_ops, K), 20, 1)
+    for call, pts in ((f"Tom-256 [{N}, 162] (phase A)", allC),
+                      (f"Tom-256 [{K}, 39] (phase B)", torch.cat([cm, s5], dim=1)),
+                      (f"Tom-256 [{N * 4 * n}] (GK commits)", gk)):
+        case("to_affine", call, lambda: to_affine(tom_ops, pts), lambda: tom_ops.to_affine(pts),
+             _affine_bound(tom_ops, pts.shape[:-2].numel()), 5, 1)
+
+    # -- GK d-values: one ring_fold over N*n rows, 12 pair-form levels;
+    #    the plain version runs over N instances at a time (the same
+    #    function; one call over all rows would hold ~20 GB of products) --
+    M = N * n
+    vals = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(RING)], dev)
+    fs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(M * n)], dev).reshape(M, n, -1)
+    xfs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(M * n)], dev).reshape(M, n, -1)
+
+    def fold_plain():
+        return torch.cat([ring_fold(vals, fs[i : i + N], xfs[i : i + N], mul=field_mul_plain)
+                          for i in range(0, M, N)])
+
+    case("field_mul", f"pair form through ring_fold [{M}, {RING}] (GK d-values), {n} launches",
+         lambda: ring_fold(vals, fs, xfs), fold_plain,
+         _bound(2 * M * (RING - 1), (RING + 2 * M * n + M) * pb), 3, n, n)
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -394,9 +654,19 @@ def main() -> int:
     import numpy as np
 
     from zkecdsa_tpu_torch import _build, ecdsa
-    from zkecdsa_tpu_torch.ops.curve_ops import comb_mixed, ec_add, straus_msm, to_affine
-    from zkecdsa_tpu_torch.ops.field import field_mul
-    from zkecdsa_tpu_torch.protocol.batch import device_params_for
+    from zkecdsa_tpu_torch.ops.curve_ops import (
+        comb4_bases,
+        comb4_entries,
+        comb_mixed,
+        comb_weier,
+        ec_add,
+        mul_comb4,
+        shamir,
+        straus_msm,
+        to_affine,
+    )
+    from zkecdsa_tpu_torch.ops.field import chord, field_mul
+    from zkecdsa_tpu_torch.protocol.batch import BatchProver, device_params_for
     from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
     from zkecdsa_tpu_torch.serde import read_json, write_json
     from zkecdsa_tpu_torch.utils import rng
@@ -413,14 +683,15 @@ def main() -> int:
     log(f"build: {_build.build():.1f} s (nvcc, sm_90a, {_build.LIB_PATH.name})")
     _build.load()
 
-    # -- inputs of the slice, made from the seed; host proving starts in
-    #    worker processes while the kernels are checked ----------------------
+    # -- inputs, made from the seed: N signers whose keys open the ring;
+    #    the host prover starts on proofs 0..K-1 in worker processes while
+    #    the kernels are checked -------------------------------------------
     with rng.deterministic(SEED):
         params = generate_params_list()
-        kps = [ecdsa.generate_keypair() for _ in range(K)]
+        kps = [ecdsa.generate_keypair() for _ in range(N)]
     pubs = [ecdsa.export_public_raw(kp) for kp in kps]
-    ring = [ecdsa.key_to_int(p) for p in pubs] + list(range(1000, 1000 + RING - K))
-    msgs = [f"chip smoke message {i}".encode() for i in range(K)]
+    ring = [ecdsa.key_to_int(p) for p in pubs] + list(range(1000, 1000 + RING - N))
+    msgs = [f"chip smoke message {i}".encode() for i in range(N)]
     mhs = [hashlib.sha256(m).digest() for m in msgs]
     with rng.deterministic(SEED + 1):
         sigs = [ecdsa.sign(kp, m) for kp, m in zip(kps, msgs)]
@@ -437,62 +708,112 @@ def main() -> int:
         # -- phase 3: kernels against their plain versions -----------------
         dparams = device_params_for(params, dev).tabs()
         rs = np.random.RandomState(SEED)
-        entries = check_kernels(dev, dparams, rs, log)
+        shapes = {k: [v] for k, v in check_kernels(dev, dparams, rs, log).items()}
+        for k, recs in check_prover_kernels(dev, dparams, rs, log).items():
+            shapes.setdefault(k, []).extend(recs)
 
-        proof_jsons = proving.get(timeout=900)
+        host_jsons = proving.get(timeout=900)
         log(f"host proving: {K} proofs at ring {RING} in {time.perf_counter() - t0:.1f} s "
             f"({workers} processes)")
 
-        # -- phase 4: the slice ---------------------------------------------
-        distinct = [read_json(SignatureProofList, j) for j in proof_jsons]
-        proofs = [distinct[i % K] for i in range(N)]
-        batch_mhs = [mhs[i % K] for i in range(N)]
-        bv = BatchVerifier(params, dev)
-        t0 = time.perf_counter()
-        ok = bv.verify(batch_mhs, ring, proofs)
-        torch.cuda.synchronize()
-        log(f"verify warm-up: {time.perf_counter() - t0:.2f} s")
-        if not all(ok):
-            raise AssertionError(f"warm-up verify rejected honest proofs: {ok.count(False)} False")
+        counters = {fn.__name__: fn for fn in (
+            field_mul, ec_add, to_affine, straus_msm, comb_mixed,
+            shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
+        )}
+        prove_path = ("field_mul", "ec_add", "to_affine", "comb_mixed", "shamir",
+                      "comb4_bases", "comb4_entries", "mul_comb4", "comb_weier", "chord")
+        verify_path = ("field_mul", "ec_add", "to_affine", "straus_msm", "comb_mixed")
 
-        counters = (field_mul, ec_add, to_affine, straus_msm, comb_mixed)
-        timer = StageTimer(dev)
-        walls = []
-        launches = {}
-        for rep in range(REPS):
-            if rep == 0:
-                for fn in counters:
-                    fn.launches = 0
+        def timed_reps(name, run, path, check):
+            """One warm-up and REPS timed runs; the launch counts are set to
+            0 just before the first timed run and read just after it."""
             t0 = time.perf_counter()
-            ok = bv.verify(batch_mhs, ring, proofs, timer=timer)
+            out = run(None)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            if rep == 0:
-                launches = {fn.__name__: fn.launches for fn in counters}
+            log(f"{name} warm-up: {time.perf_counter() - t0:.2f} s")
+            check(out)
+            timer = StageTimer(dev)
+            walls, launches = [], {}
+            for rep in range(REPS):
+                if rep == 0:
+                    for fn in counters.values():
+                        fn.launches = 0
+                t0 = time.perf_counter()
+                res = run(timer)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if rep == 0:
+                    launches = {k: fn.launches for k, fn in counters.items()}
+                check(res)
+            wall = statistics.median(walls)
+            log(f"slice: {name} N={N} ring={RING}: median {wall:.3f} s of "
+                f"{[round(w, 3) for w in walls]} -> {N / wall:.2f} proofs/s on {smi}")
+            log(f"{name} stages over the timed reps (seconds summed over reps):\n" + timer.report())
+            log(f"launches in one {name}: " + json.dumps(launches))
+            missing = [k for k in path if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched on the {name} path: {missing}")
+            return out, wall, launches, timer
+
+        # -- phase 4a: the prover --------------------------------------------
+        bp = BatchProver(params, dev)
+
+        def prove(timer):
+            tapes = [rng.DeterministicSource(SEED + 100 + i) for i in range(N)]
+            return bp.prove(mhs, sigs, pubs, list(range(N)), ring, tapes, timer=timer)
+
+        wire: list[str] = []
+
+        def check_proofs(proofs):
+            got = [write_json(SignatureProofList, p) for p in proofs]
+            if not wire:
+                wire.extend(got)
+                if got[:K] != host_jsons:
+                    raise AssertionError("batched proofs 0..K-1 differ from the host prover's bytes")
+                log(f"batched proofs 0..{K - 1} equal the host prover's byte for byte")
+            elif got != wire:
+                raise AssertionError("a timed prove gave other proof bytes than the warm-up")
+
+        proofs, prove_wall, launches_prove, ptimer = timed_reps(
+            "prove", prove, prove_path, check_proofs
+        )
+        log("proof bytes sha256: " + hashlib.sha256("".join(wire).encode()).hexdigest())
+        # phase 3 timed every shape of the prove path: its launches per
+        # prove add up to the counts of the run
+        for k in prove_path:
+            at_shapes = sum(r["launches_per_prove"] for r in shapes[k])
+            if at_shapes != launches_prove[k]:
+                raise AssertionError(
+                    f"{k}: {launches_prove[k]} launches in one prove, {at_shapes} at the checked shapes"
+                )
+
+        # -- phase 4b: the verifier on the N distinct proofs ------------------
+        bv = BatchVerifier(params, dev)
+
+        def check_verdicts(ok):
             if not all(ok):
-                raise AssertionError(f"verify rep {rep} rejected honest proofs")
-        if timer.counts.get("msm.combine_host") != REPS or timer.counts.get("msm.pack_host") != REPS:
+                raise AssertionError(f"verify rejected honest proofs: {ok.count(False)} False")
+
+        _, verify_wall, launches_verify, vtimer = timed_reps(
+            "verify", lambda timer: bv.verify(mhs, ring, proofs, timer=timer), verify_path,
+            check_verdicts,
+        )
+        if vtimer.counts.get("msm.combine_host") != REPS or vtimer.counts.get("msm.pack_host") != REPS:
             raise AssertionError(
-                f"expected the combined Tom-256 MSM and the per-row P-256 MSM once a rep: {timer.counts}"
+                f"expected the combined Tom-256 MSM and the per-row P-256 MSM once a rep: {vtimer.counts}"
             )
-        wall = statistics.median(walls)
-        log(f"slice: BatchVerifier.verify N={N} ring={RING}: median {wall:.3f} s of "
-            f"{[round(w, 3) for w in walls]} -> {N / wall:.2f} proofs/s on {smi}")
-        log("stages over the timed reps (seconds summed over reps):\n" + timer.report())
-        log("launches in one verify: " + json.dumps(launches))
-        missing = [k for k, v in launches.items() if v <= 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the main path: {missing}")
+        both = prove_wall + verify_wall
+        log(f"prove+verify: {both:.3f} s per batch of {N} -> {N / both:.2f} proofs/s on {smi}")
 
         # tampered GK response at one position: only it fails, through the
         # per-row attribution path
-        bad = read_json(SignatureProofList, write_json(SignatureProofList, proofs[TAMPER_AT]))
+        bad = read_json(SignatureProofList, wire[TAMPER_AT])
         bad.membershipProof.f[0] = bad.membershipProof.f[1]
         tampered = list(proofs)
         tampered[TAMPER_AT] = bad
         ttimer = StageTimer(dev)
         t0 = time.perf_counter()
-        verdict = bv.verify(batch_mhs, ring, tampered, timer=ttimer)
+        verdict = bv.verify(mhs, ring, tampered, timer=ttimer)
         log(f"tampered batch: {time.perf_counter() - t0:.2f} s, False at "
             f"{[i for i, v in enumerate(verdict) if not v]}")
         if verdict != [i != TAMPER_AT for i in range(N)]:
@@ -500,10 +821,10 @@ def main() -> int:
         if ttimer.counts.get("msm.pack_host") != 2:
             raise AssertionError(f"the attribution path did not run: {ttimer.counts}")
 
-        # the host scalar verifier agrees on the distinct proofs and the
+        # the host scalar verifier agrees on batched proofs and the
         # tampered one
-        jobs = [(params_json, mhs[i], ring, proof_jsons[i], SEED + 200 + i) for i in range(K)]
-        jobs.append((params_json, mhs[TAMPER_AT % K], ring,
+        jobs = [(params_json, mhs[i], ring, wire[i], SEED + 200 + i) for i in range(K)]
+        jobs.append((params_json, mhs[TAMPER_AT], ring,
                      write_json(SignatureProofList, bad), SEED + 300))
         host = pool.map(_host_verify, jobs)
         pool.close()
@@ -519,19 +840,38 @@ def main() -> int:
         "to_affine": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:459"),
         "straus_msm": ("zkecdsa_tpu_torch/csrc/msm.cu", "zkecdsa_tpu/ops/curve_ops.py:393"),
         "comb_mixed": ("zkecdsa_tpu_torch/csrc/comb.cu", "zkecdsa_tpu/ops/curve_ops.py:731"),
+        "shamir": ("zkecdsa_tpu_torch/csrc/shamir.cu", "zkecdsa_tpu/ops/curve_ops.py:238"),
+        "comb4_bases": ("zkecdsa_tpu_torch/csrc/comb4.cu", "zkecdsa_tpu/ops/curve_ops.py:194"),
+        "comb4_entries": ("zkecdsa_tpu_torch/csrc/comb4.cu", "zkecdsa_tpu/ops/curve_ops.py:194"),
+        "mul_comb4": ("zkecdsa_tpu_torch/csrc/comb4.cu", "zkecdsa_tpu/ops/curve_ops.py:218"),
+        "comb_weier": ("zkecdsa_tpu_torch/csrc/comb.cu", "zkecdsa_tpu/ops/curve_ops.py:330"),
+        "chord": ("zkecdsa_tpu_torch/csrc/chord.cu", "zkecdsa_tpu/ops/f32field.py:441"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        e = entries[name]
+        recs = shapes[name]
+        e = recs[0]  # slice 1's kernels: the verifier's shape; else the prover's first
+        prove_ms = sum(r["ms"] * r["launches_per_prove"] / r["launches_per_call"] for r in recs)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": e["max_abs_err"],
+            "launches": launches_prove[name] + launches_verify[name],
+            "launches_prove": launches_prove[name], "launches_verify": launches_verify[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": None, "call": e["call"],
+            "prove_ms": prove_ms, "shapes": recs,
         })
+        log(f"{name}: {prove_ms:.4f} ms of kernel time in one prove "
+            f"({launches_prove[name]} launches)")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": kernels, "proofs_per_s": N / wall, "verify_s": wall}))
+    print(json.dumps({
+        "kernels": kernels,
+        "prove_s": prove_wall, "prove_proofs_per_s": N / prove_wall,
+        "verify_s": verify_wall, "verify_proofs_per_s": N / verify_wall,
+        "prove_verify_proofs_per_s": N / both,
+        "prove_stages": ptimer.stages, "verify_stages": vtimer.stages,
+    }))
     print(json.dumps({
         "ok": True,
         "device": {

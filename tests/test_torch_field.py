@@ -23,6 +23,10 @@ from zkecdsa_tpu_torch.ops import curve_ops as tcurve
 from zkecdsa_tpu_torch.ops import field as tf
 from zkecdsa_tpu_torch.utils import rng as trng
 
+# One intra-op thread: the suite runs several worker processes on the same
+# cores, and an oversubscribed OpenMP pool spins instead of working.
+torch.set_num_threads(1)
+
 CSRC = Path(tf.__file__).resolve().parents[1] / "csrc"
 
 # (port field, reference field) pairs, by name
@@ -190,3 +194,129 @@ def test_kernel_constants_match_python():
     for ops, cid in ((p256, "P256"), (war, "WAR"), (tom, "TOM")):
         assert re.search(rf"#define ZK_CURVE_{cid} {ops.curve_id}\b", curve_h)
 
+
+
+def _chord_rows(rs, K):
+    q = tf.TOM_N.p
+    rows = [[int.from_bytes(rs.bytes(40), "little") % q for _ in range(15)] for _ in range(K)]
+    rows[1][2] = rows[1][0]  # pkx == t1x: a zero to invert
+    return rows
+
+
+def test_chord_vs_reference_field_pass():
+    """The chord pass (CPU: the plain version) against the reference's
+    phase-B field pass (protocol/batch.py:464-493) on F32Field TOM_N:
+    sub/mul and the batch_inv tree, which maps a zero to zero."""
+    rs = np.random.RandomState(17)
+    K = 5
+    rows = _chord_rows(rs, K)
+    got = tf.TOM_N.unpack(tf.chord(tf.TOM_N.pack(sum(rows, [])).reshape(K, 15, -1)))
+    fo = jf.TOM_N
+    t1x, t1y, pkx, pky, txv, pky_r, txr, cb0, cb1, cb2, cb3, *kx = (
+        jnp.asarray(fo.pack([r[s] for r in rows])) for s in range(15)
+    )
+    i7 = fo.sub(pkx, t1x)
+    i8 = fo.batch_inv(i7)
+    i9 = fo.sub(pky, t1y)
+    i10 = fo.mul(i8, i9)
+    i12 = fo.sub(t1x, txv)
+    ys, xs = [i8, i9, i10, i12], [i7, i8, i10, i10]
+    rb = [cb2, fo.sub(pky_r, cb1), cb3, fo.sub(cb0, txr)]
+    ref = (
+        [i7, i8, i9, i10, fo.mul(i10, i10), i12, fo.mul(i10, i12)]
+        + [fo.mul(x, y) for x, y in zip(xs, ys)] + [fo.mul(k, y) for k, y in zip(kx, ys)]
+        + [fo.mul(x, r) for x, r in zip(xs, rb)] + [fo.mul(k, r) for k, r in zip(kx, rb)]
+    )
+    ref_ints = [fo.unpack_canonical(fo.canon(v)) for v in ref]  # 23 x [K]
+    for k in range(K):
+        assert got[23 * k : 23 * k + 23] == [col[k] for col in ref_ints], k
+    assert got[23 + 1] == 0
+
+
+def test_point_bytes_and_challenges_vs_reference():
+    """be_bytes/point_bytes/challenge_rows on canonical limbs against the
+    reference's on F32Field digits, with a (0, 0) identity row, and the
+    challenges against host hash_points on the other rows."""
+    from zkecdsa_tpu.protocol import fiat_shamir as jfs
+    from zkecdsa_tpu_torch.curves.group import hash_points
+    from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
+    from zkecdsa_tpu_torch.protocol import fiat_shamir as tfs
+
+    rs = np.random.RandomState(19)
+    for g, (f, jfield), nb in ((tomEdwards256, FIELDS["tom.p"], 33), (p256, FIELDS["p256.p"], 32)):
+        pts = [g.generator().mul(g.new_scalar(int.from_bytes(rs.bytes(32), "big") % g.order)) for _ in range(4)]
+        aff = [pt.to_affine() for pt in pts] + [(0, 0)]
+        xs, ys = [a[0] for a in aff], [a[1] for a in aff]
+        got = tfs.point_bytes(f.pack(xs), f.pack(ys), nb)
+        ref = jfs.point_bytes(jfield, jfield.pack(xs), jfield.pack(ys), nb)
+        np.testing.assert_array_equal(got, ref)
+        assert got[0].tobytes() == pts[0].to_bytes()
+        np.testing.assert_array_equal(tfs.be_bytes(f.pack(xs), nb), jfs.be_bytes(jfield, jfield.pack(xs), nb))
+        rows = got.reshape(1, -1)
+        assert tfs.challenge_rows([rows[:, :100], rows[:, 100:]]) == jfs.challenge_rows([rows])
+        assert tfs.challenge_rows([got[:4].reshape(1, -1)]) == [hash_points(pts)]
+
+
+def test_gk_dvalues_device_vs_reference():
+    """The port's d-values (one ring_fold over N*n rows, host factors)
+    against the reference's scan over the evaluation points, N=2, ring 16."""
+    from zkecdsa_tpu.protocol.batch_gk import gk_dvalues_device as jdvalues
+    from zkecdsa_tpu_torch.protocol.batch_gk import gk_dvalues_device
+
+    N, n = 2, 4
+    q = tf.TOM_N.p
+    rs = np.random.RandomState(23)
+    values = [int.from_bytes(rs.bytes(32), "little") % q for _ in range(1 << n)]
+    which = [5, 12]
+    eli = [[(w >> j) & 1 for j in range(n)] for w in which]
+    ai = [[int.from_bytes(rs.bytes(32), "little") % q for _ in range(n)] for _ in range(N)]
+    got = gk_dvalues_device(eli, ai, values, [values[w] for w in which], "cpu")
+    fo = jf.TOM_N
+    ref = jdvalues(
+        jnp.asarray(np.array(eli, np.int32)),
+        jnp.asarray(fo.pack(sum(ai, []))).reshape(N, n, -1),
+        jnp.asarray(fo.pack(values)),
+        jnp.asarray(fo.pack([values[w] for w in which])),
+    )
+    assert sum(got, []) == fo.unpack_canonical(ref)
+
+
+def _gk_ints(proof) -> list[int]:
+    pts = [c for arr in (proof.cl, proof.ca, proof.cb, proof.cd) for pt in arr for c in pt.to_affine()]
+    return pts + [s.k for arr in (proof.f, proof.za, proof.zb) for s in arr] + [proof.zd.k]
+
+
+@pytest.mark.parametrize("ring_len,which", [(16, (3, 14)), (1, (0, 0))])
+def test_batch_prove_membership_vs_reference(ring_len, which):
+    """The port's batched GK prover (device d-values and commitments, CPU
+    tensors) against the reference's (device d-values, host commitments)
+    on the same tapes, N=2: ring 16, and a ring of one key (no bits)."""
+    from zkecdsa_tpu.protocol.batch_gk import batch_prove_membership as jprove_membership
+    from zkecdsa_tpu.serde import write_json as jwrite_json
+    from zkecdsa_tpu.utils import rng as jrng
+    from zkecdsa_tpu.zkp_attest_list import SystemParametersList as JParams
+    from zkecdsa_tpu.zkp_attest_list import generate_params_list as jgenerate_params
+    from zkecdsa_tpu_torch import carry
+    from zkecdsa_tpu_torch.commit.pedersen import Commitment
+    from zkecdsa_tpu_torch.curves.edwards import TEdwardsPoint
+    from zkecdsa_tpu_torch.curves.instances import tomEdwards256
+    from zkecdsa_tpu_torch.protocol.batch import DeviceParams
+    from zkecdsa_tpu_torch.protocol.batch_gk import batch_prove_membership
+
+    with jrng.deterministic(29):
+        jparams = jgenerate_params()
+        ring = [int.from_bytes(jrng.random_bytes(32), "big") for _ in range(ring_len)]
+        jcoms = [jparams.proof_group.commit(ring[w]) for w in which]
+    tparams = carry.params_from_jax(jwrite_json(JParams, jparams))
+    tcoms = [
+        Commitment(TEdwardsPoint(tomEdwards256, *c.p.to_affine()), tomEdwards256.new_scalar(c.r.k))
+        for c in jcoms
+    ]
+    ref = jprove_membership(
+        jparams.proof_group, jcoms, list(which), ring, [jrng.DeterministicSource(s) for s in (7, 8)]
+    )
+    got = batch_prove_membership(
+        tparams.proof_group, tcoms, list(which), ring, [trng.DeterministicSource(s) for s in (7, 8)],
+        dev=DeviceParams(tparams, "cpu"),
+    )
+    assert [_gk_ints(p) for p in got] == [_gk_ints(p) for p in ref]

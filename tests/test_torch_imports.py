@@ -13,19 +13,25 @@ import torch
 from zkecdsa_tpu_torch import _build
 from zkecdsa_tpu_torch.ops import curve_ops as tcurve
 from zkecdsa_tpu_torch.ops import field as tf
+from zkecdsa_tpu_torch.protocol import batch as tbatch
 from zkecdsa_tpu_torch.protocol import batch_verify as tbv
 from zkecdsa_tpu_torch.utils import rng as trng
 from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list
 
+# One intra-op thread: the suite runs several worker processes on the same
+# cores, and an oversubscribed OpenMP pool spins instead of working.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
-# A tiny verify (4 exp rounds, 2 checked, ring of 2) in a fresh interpreter,
-# then the list of every loaded module that belongs to JAX or the JAX
-# package.
+# A tiny verify (4 exp rounds, 2 checked, ring of 2) and a tiny batched
+# prove (one proof, ring of 2) in a fresh interpreter, then the list of
+# every loaded module that belongs to JAX or the JAX package.
 _PROBE = r"""
 import hashlib, sys
 import chip_smoke  # noqa: F401  the chip script's own imports
 from zkecdsa_tpu_torch import ecdsa
+from zkecdsa_tpu_torch.protocol.batch import BatchProver
 from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
 from zkecdsa_tpu_torch.utils import rng
 from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list, prove_signature_list
@@ -39,6 +45,12 @@ with rng.deterministic(3):
     proof = prove_signature_list(params, mh, sig, pub, 0, ring)
     ok = BatchVerifier(params, device="cpu").verify([mh], ring, [proof])
 assert ok == [True], ok
+with rng.deterministic(4):
+    params80 = generate_params_list()
+proofs = BatchProver(params80, device="cpu").prove(
+    [mh], [sig], [pub], [0], ring, [rng.DeterministicSource(9)]
+)
+assert len(proofs) == 1 and len(proofs[0].expProof) == 80
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or (m.startswith("zkecdsa_tpu") and not m.startswith("zkecdsa_tpu_torch")))
@@ -47,7 +59,7 @@ print("FOREIGN", bad)
 
 
 def test_port_imports_no_jax_and_no_reference():
-    env = dict(os.environ, ZKECDSA_VERIFY_ROUNDS="2", PYTHONPATH=str(ROOT))
+    env = dict(os.environ, ZKECDSA_VERIFY_ROUNDS="2", PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=600,
@@ -66,6 +78,10 @@ def test_entry_point_defaults_to_cuda(monkeypatch):
         tbv.BatchVerifier(params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tbv.batch_verify_signature_list(params, [], [1, 2], [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tbatch.BatchProver(params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tbatch.batched_prove_signature_list(params, [], [], [], [], [1, 2])
 
 
 def _meta(shape, dtype=torch.int32):
@@ -84,6 +100,19 @@ _CALLS = {
     "comb_mixed": lambda: tcurve.comb_mixed(
         _meta((64, 256, 5, 9)), _meta((2, 64), torch.uint8)
     ),
+    "shamir": lambda: tcurve.shamir(
+        _meta((16, 3, 9)), _meta((2, 64), torch.uint8), _meta((2, 16, 3, 9)), _meta((2, 64), torch.uint8)
+    ),
+    "comb4_table": lambda: tcurve.comb4_table(_meta((2, 3, 9))),
+    "comb4_bases": lambda: tcurve.comb4_bases(_meta((2, 3, 9))),
+    "comb4_entries": lambda: tcurve.comb4_entries(_meta((2, 64, 3, 9))),
+    "mul_comb4": lambda: tcurve.mul_comb4(
+        _meta((2, 64, 16, 3, 9)), _meta((2, 5, 64), torch.uint8)
+    ),
+    "comb_weier": lambda: tcurve.comb_weier(
+        _meta((32, 256, 3, 9)), _meta((2, 32), torch.uint8)
+    ),
+    "chord": lambda: tf.chord(_meta((4, 15, 9))),
 }
 
 

@@ -9,7 +9,9 @@ machine, from the repository root:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 (``--noconftest``: the suite's conftest sets up JAX.)  The other tests run
-the wrappers' CPU path against Python integers and the host curves.
+the wrappers' CPU path against Python integers and the host curves;
+tests/test_torch_curve.py and tests/test_torch_field.py hold the prover's
+plain versions against the JAX package and the host curves.
 """
 
 import numpy as np
@@ -22,6 +24,10 @@ from zkecdsa_tpu_torch.ops import field as tf
 from zkecdsa_tpu_torch.protocol.batch import DeviceParams
 from zkecdsa_tpu_torch.utils import rng as trng
 from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list
+
+# One intra-op thread: the suite runs several worker processes on the same
+# cores, and an oversubscribed OpenMP pool spins instead of working.
+torch.set_num_threads(1)
 
 FIELDS = [tf.P256_P, tf.P256_N, tf.TOM_P, tf.TOM_N, tf.WAR_P]
 CURVES = [(tcurve.p256_ops, p256), (tcurve.tom_ops, tomEdwards256)]
@@ -144,4 +150,79 @@ def test_comb_mixed_kernel_vs_plain(tables, cuda):
     got = tcurve.comb_mixed(tabs, d8)
     assert torch.equal(got, tcurve.tom_ops.mul_comb_mixed(tabs, d8))
     assert bool(tcurve.tom_ops.is_identity(got[0]))
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def prover_tables():
+    """The prover's device tables (built only where the kernels run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels run only on the card")
+    with trng.deterministic(32):
+        params = generate_params_list()
+    return DeviceParams(params, "cpu").tabs()
+
+
+def _scalar(g, rs) -> int:
+    return int.from_bytes(rs.bytes(32), "little") % g.order
+
+
+@pytest.mark.cuda
+def test_shamir_kernel_vs_plain(prover_tables, cuda):
+    tabs = prover_tables
+    rs = np.random.RandomState(91)
+    ops, g = tcurve.p256_ops, p256
+    pts = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(40)], cuda)
+    tab = tcurve.window_table(ops, pts)
+    assert torch.equal(tab, ops.table(pts))
+    dP = torch.from_numpy(rs.randint(0, 16, size=(40, 2, 64)).astype(np.uint8)).to(cuda)
+    dQ = torch.from_numpy(rs.randint(0, 16, size=(40, 2, 64)).astype(np.uint8)).to(cuda)
+    dQ[:, 1] = 0
+    tp = torch.stack([tab, tabs["G"].to(cuda).expand_as(tab)], dim=1)
+    hn = tabs["h_n"].to(cuda)
+    got = tcurve.shamir(tp, dP, hn, dQ)
+    assert torch.equal(got, ops.double_mul_tables(tp, dP, hn, dQ))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_comb4_kernels_vs_plain(cuda):
+    rs = np.random.RandomState(92)
+    ops, g = tcurve.p256_ops, p256
+    R = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(6)], cuda)
+    bases = tcurve.comb4_bases(R)
+    assert torch.equal(bases, ops.comb4_bases(R))
+    assert torch.equal(tcurve.comb4_entries(bases), ops.comb4_entries(bases))
+    tab = tcurve.comb4_table(R)
+    assert torch.equal(tab, ops.comb4_table(R))
+    dig = torch.from_numpy(rs.randint(0, 16, size=(6, 9, 64)).astype(np.uint8)).to(cuda)
+    dig[0, 0] = 0
+    got = tcurve.mul_comb4(tab, dig)
+    assert torch.equal(got, ops.mul_comb4(tab, dig))
+    assert bool(ops.is_identity(got[0, 0]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_comb_weier_kernel_vs_plain(prover_tables, cuda):
+    tabs = prover_tables
+    comb = tabs["h_n8"].to(cuda)
+    d8 = torch.from_numpy(np.random.RandomState(93).randint(0, 256, size=(96, 32)).astype(np.uint8))
+    d8[0] = 0
+    d8 = d8.to(cuda)
+    got = tcurve.comb_weier(comb, d8)
+    assert torch.equal(got, tcurve.p256_ops.mul_comb(comb, d8))
+    assert bool(tcurve.p256_ops.is_identity(got[0]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_chord_kernel_vs_plain(cuda):
+    f = tf.TOM_N
+    rs = np.random.RandomState(94)
+    x = f.pack(_values(f.p, rs, 300 * 15), cuda).reshape(300, 15, -1)
+    x[0, 2] = x[0, 0]  # a zero row for the inverse
+    got = tf.chord(x)
+    assert torch.equal(got, tf.chord_plain(x))
+    assert bool(f.is_zero(got[0, 1]))
     torch.cuda.synchronize()

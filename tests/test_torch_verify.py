@@ -44,6 +44,10 @@ from zkecdsa_tpu_torch.utils import rng as trng
 from zkecdsa_tpu_torch.utils.profiling import StageTimer
 from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList
 
+# One intra-op thread: the suite runs several worker processes on the same
+# cores, and an oversubscribed OpenMP pool spins instead of working.
+torch.set_num_threads(1)
+
 S = 20  # verify rounds
 
 

@@ -7,7 +7,7 @@ The counterpart of the JAX package ``zkecdsa_tpu``, module for module:
   package's, the exact-semantics anchor;
 * device layer (``ops``: 9-limb canonical field values, complete-formula
   curve operations, each hand-written CUDA kernel beside its plain
-  PyTorch version; ``protocol``: the batched verifier).
+  PyTorch version; ``protocol``: the batched prover and verifier).
 
 It imports neither JAX nor the reference package.  Device entry points run
 on CUDA unless the caller passes ``device="cpu"``.

@@ -45,6 +45,12 @@ _SIGNATURES = {
     "zk_to_affine": [_I, _L, _P, _P, _P, _P, _P],
     "zk_straus_msm": [_I, _L, _L, _I, _P, _P, _P, _P, _P],
     "zk_comb_mixed": [_L, _P, _P, _P, _P],
+    "zk_comb_weier": [_L, _P, _P, _P, _P],
+    "zk_shamir": [_L, _P, _L, _P, _P, _L, _P, _P, _P],
+    "zk_comb4_bases": [_L, _P, _P, _P],
+    "zk_comb4_entries": [_L, _P, _P, _P],
+    "zk_mul_comb4": [_L, _L, _P, _P, _P, _P],
+    "zk_chord": [_L, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

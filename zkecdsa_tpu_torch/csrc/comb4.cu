@@ -1,0 +1,118 @@
+// comb4: the per-base 4-bit comb on P-256, for many scalars that share one
+// dynamic base (the prover's 80 exp rounds T_i = alpha_i * R share the R of
+// their instance).
+//
+// The table [R, 64, 16, 3, 9], entry [j][d] = d * 16^(63-j) * base
+// (position axis MSB-first, as nibble digits are), replaces
+// zkecdsa_tpu/ops/curve_ops.py:194 comb4_table, in its order, as two
+// entries:
+//
+// zk_comb4_bases: bases [R, 3, 9] -> position bases [R, 64, 3, 9], entry j
+// = 16^(63-j) * base: a serial chain of 63 runs of four doublings, one
+// thread per base.
+//
+// zk_comb4_entries: position bases [R, 64, 3, 9] -> tables [R, 64, 16, 3,
+// 9]: one thread per (base, position) builds the 16 entries by doubling the
+// entry set: m_k = dbl(entry k/2), entries k..2k-1 = entries 0..k-1 + m_k.
+//
+// zk_mul_comb4: tables [R, 64, 16, 3, 9] and MSB-first nibbles [R, S, 64]
+// -> [R, S, 3, 9]: 64 gather-adds from the row's own table per scalar, no
+// doublings, one thread per scalar.  Replaces curve_ops.py:218 mul_comb4.
+//
+// Every operation is a complete formula in the plain version's order
+// (ops/curve_ops.py), so the projective results are the same integers.
+//
+// Bound on the H100: 32-bit integer multiply-adds.  The bases are 252
+// doublings per base in one dependent chain (latency-bound: 256 threads at
+// N=256); the entries are 3 doublings and 14 adds per (base, position);
+// the multiply is 64 adds per scalar (N*80 threads) reading 64 scattered
+// 108-byte entries of a 110 KB per-base table, which L2 holds.
+
+#include <cuda_runtime.h>
+
+#include "curve.cuh"
+
+namespace {
+
+constexpr int CID = ZK_CURVE_P256;
+constexpr int PT = 3 * ZK_NL;                 // limbs per point
+constexpr long long TAB = 64LL * 16 * PT;     // limbs per base's table
+
+__global__ void comb4_bases_kernel(long long R, const uint32_t* __restrict__ P,
+                                   uint32_t* __restrict__ bases) {
+    const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= R) return;
+    uint32_t* t = bases + r * 64 * PT;
+    Pt<CID> b, tmp;
+    pt_load<CID>(b, P + r * PT);
+    pt_store<CID>(t + 63 * PT, b);
+    for (int k = 1; k < 64; ++k) {
+#pragma unroll 1
+        for (int s = 0; s < 4; ++s) {
+            pt_dbl<CID>(tmp, b);
+            b = tmp;
+        }
+        pt_store<CID>(t + (63 - k) * PT, b);
+    }
+}
+
+__global__ void comb4_entries_kernel(long long RJ, const uint32_t* __restrict__ bases,
+                                     uint32_t* __restrict__ tab) {
+    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= RJ) return;
+    uint32_t* t = tab + idx * 16 * PT;  // (base, position) row of 16 entries
+    Pt<CID> E[16], m;
+    pt_identity<CID>(E[0]);
+    pt_store<CID>(t, E[0]);
+    pt_load<CID>(E[1], bases + idx * PT);
+    pt_store<CID>(t + PT, E[1]);
+    for (int k = 2; k < 16; k *= 2) {
+        pt_dbl<CID>(m, E[k / 2]);
+        for (int s = 0; s < k; ++s) {
+            pt_add<CID>(E[k + s], E[s], m);
+            pt_store<CID>(t + (k + s) * PT, E[k + s]);
+        }
+    }
+}
+
+__global__ void mul_comb4_kernel(long long RS, long long S, const uint32_t* __restrict__ tab,
+                                 const uint8_t* __restrict__ digits, uint32_t* __restrict__ out) {
+    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= RS) return;
+    const uint32_t* t = tab + (idx / S) * TAB;
+    const uint8_t* d = digits + idx * 64;
+    Pt<CID> acc, tmp, e;
+    pt_identity<CID>(acc);
+    for (int j = 0; j < 64; ++j) {
+        pt_load<CID>(e, t + (j * 16 + d[j]) * PT);
+        pt_add<CID>(tmp, acc, e);
+        acc = tmp;
+    }
+    pt_store<CID>(out + idx * PT, acc);
+}
+
+unsigned grid_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
+
+}  // namespace
+
+extern "C" int zk_comb4_bases(long long R, const void* P, void* bases, void* stream) {
+    if (R == 0) return 0;
+    comb4_bases_kernel<<<grid_for(R, 32), 32, 0, (cudaStream_t)stream>>>(
+        R, (const uint32_t*)P, (uint32_t*)bases);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int zk_comb4_entries(long long R, const void* bases, void* tab, void* stream) {
+    if (R == 0) return 0;
+    comb4_entries_kernel<<<grid_for(R * 64, 64), 64, 0, (cudaStream_t)stream>>>(
+        R * 64, (const uint32_t*)bases, (uint32_t*)tab);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int zk_mul_comb4(long long R, long long S, const void* tab, const void* digits,
+                            void* out, void* stream) {
+    if (R * S == 0) return 0;
+    mul_comb4_kernel<<<grid_for(R * S, 128), 128, 0, (cudaStream_t)stream>>>(
+        R * S, S, (const uint32_t*)tab, (const uint8_t*)digits, (uint32_t*)out);
+    return (int)cudaGetLastError();
+}

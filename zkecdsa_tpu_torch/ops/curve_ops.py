@@ -14,7 +14,9 @@ Plain versions (``CurveOps`` methods) run on any device in plain PyTorch;
 inside a method the coordinates stay in the field's redundant working form
 and are canonicalised once at the end.  The kernel wrappers
 (:func:`ec_add`, :func:`to_affine`, :func:`straus_msm`,
-:func:`comb_mixed`) take the plain version for a CPU tensor and launch
+:func:`comb_mixed`, and the prover's P-256 kernels :func:`shamir`,
+:func:`comb4_bases`, :func:`comb4_entries`, :func:`mul_comb4`,
+:func:`comb_weier`) take the plain version for a CPU tensor and launch
 their kernel for any other, or raise.
 """
 
@@ -40,6 +42,13 @@ __all__ = [
     "straus_msm",
     "comb_mixed",
     "sum_reduce",
+    "window_table",
+    "shamir",
+    "comb4_table",
+    "comb4_bases",
+    "comb4_entries",
+    "mul_comb4",
+    "comb_weier",
 ]
 
 WINDOW = 4
@@ -155,6 +164,84 @@ class CurveOps:
 
     def table(self, P: torch.Tensor) -> torch.Tensor:
         return self._canon(self._wtable(self._work(P)))
+
+    def _gather_w(self, tabw: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """tabw [..., E, C, W] (batch dims broadcast against d [...]), int64
+        entry indices d -> [..., C, W]."""
+        batch = torch.broadcast_shapes(tabw.shape[:-3], d.shape)
+        idx = d.expand(batch)[..., None, None, None].expand(batch + (1,) + tabw.shape[-2:])
+        return tabw.expand(batch + tabw.shape[-3:]).gather(-3, idx).squeeze(-3)
+
+    def double_mul_tables(
+        self, tp: torch.Tensor, dP: torch.Tensor, tq: torch.Tensor, dQ: torch.Tensor
+    ) -> torch.Tensor:
+        """dP*P + dQ*Q from window tables [..., 16, C, 9] and MSB-first
+        nibbles [..., 64] (batch dims broadcast): per digit column four
+        doublings, then + tp[dP] and + tq[dQ] (the reference's Shamir scan,
+        group.ts:97-132)."""
+        batch = torch.broadcast_shapes(tp.shape[:-3], tq.shape[:-3], dP.shape[:-1], dQ.shape[:-1])
+        tpw, tqw = self._work(tp), self._work(tq)
+        dP, dQ = dP.to(torch.int64), dQ.to(torch.int64)
+        acc = self._work(self.identity(batch, tp.device))
+        for col in range(dP.shape[-1]):
+            for _ in range(4):
+                acc = self._wdbl(acc)
+            acc = self._wadd(acc, self._gather_w(tpw, dP[..., col]))
+            acc = self._wadd(acc, self._gather_w(tqw, dQ[..., col]))
+        return self._canon(acc)
+
+    def comb4_table(self, P: torch.Tensor) -> torch.Tensor:
+        """Per-base 4-bit comb table [..., 64, 16, C, 9]: entry [j][d] =
+        d * 16^(63-j) * P (position axis MSB-first, as nibble digits are),
+        built as the reference builds it: 63 runs of four doublings give
+        the position bases, then each doubling of the entry set adds
+        m_k = dbl(entry k/2) to entries 0..k-1."""
+        return self.comb4_entries(self.comb4_bases(P))
+
+    def comb4_bases(self, P: torch.Tensor) -> torch.Tensor:
+        """The position bases of :meth:`comb4_table`, [..., 64, C, 9]:
+        entry j = 16^(63-j) * P, from 63 runs of four doublings."""
+        bases = [self._work(P)]
+        for _ in range(NDIGITS_256 - 1):
+            b = bases[-1]
+            for _ in range(4):
+                b = self._wdbl(b)
+            bases.append(b)
+        return self._canon(torch.stack(bases[::-1], dim=-3))
+
+    def comb4_entries(self, bases: torch.Tensor) -> torch.Tensor:
+        """The 16 entries of each position of :meth:`comb4_table` from its
+        position bases [..., 64, C, 9] -> [..., 64, 16, C, 9]."""
+        bases = self._work(bases)
+        ident = self._work(self.identity(bases.shape[:-2], bases.device))
+        tab = torch.stack([ident, bases], dim=-3)  # [..., 64, 2, C, W]
+        while tab.shape[-3] < TABLE:
+            k = tab.shape[-3]
+            mk = self._wdbl(tab[..., k // 2, :, :])
+            tab = torch.cat([tab, self._wadd(tab, mk[..., None, :, :])], dim=-3)
+        return self._canon(tab)
+
+    def mul_comb4(self, tab: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+        """Multiply from a :meth:`comb4_table`: tab [..., 64, 16, C, 9],
+        MSB-first nibbles [..., B, 64] -> [..., B, C, 9]; 64 gather-adds per
+        scalar in position order, no doublings."""
+        tw = self._work(tab)[..., None, :, :, :, :]  # [..., 1, 64, 16, C, W]
+        d = digits.to(torch.int64)
+        batch = torch.broadcast_shapes(tab.shape[:-4] + (1,), d.shape[:-1])
+        acc = self._work(self.identity(batch, tab.device))
+        for j in range(NDIGITS_256):
+            acc = self._wadd(acc, self._gather_w(tw[..., j, :, :, :], d[..., j]))
+        return self._canon(acc)
+
+    def mul_comb(self, comb: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
+        """Fixed-base multiply from a comb table [D, 256, C, 9] (entry
+        [j][d] = d * 2^(8j) * base) and LSB-first byte digits [..., D] ->
+        [..., C, 9]: one complete add per window, in window order."""
+        d = d8.to(torch.int64)
+        acc = self._work(self.identity(d.shape[:-1], comb.device))
+        for j in range(comb.shape[0]):
+            acc = self._wadd(acc, self._work(comb[j][d[..., j]]))
+        return self._canon(acc)
 
     def _wsum(self, Pw: torch.Tensor, axis: int) -> torch.Tensor:
         """Tree sum with exactly n-1 adds; an odd width carries its last
@@ -536,3 +623,167 @@ def comb_mixed(tabs: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
 
 
 comb_mixed.launches = 0
+
+
+def window_table(ops: CurveOps, P: torch.Tensor) -> torch.Tensor:
+    """[..., 16, C, 9] window table of the multiples 0..15 of P: entry k =
+    entry k-1 + P from the identity (the reference's ``table``,
+    ``curve_ops.py:133``), through :func:`ec_add`: 15 launches."""
+    out = [ops.identity(P.shape[:-2], P.device)]
+    for _ in range(TABLE - 1):
+        out.append(ec_add(ops, out[-1], P))
+    return torch.stack(out, dim=-3)
+
+
+_P256_TABLE = (TABLE, 3, NLIMBS)  # one P-256 window table
+
+
+def _check_digits(d: torch.Tensor, width: int, name: str) -> None:
+    if d.dtype != torch.uint8 or d.shape[-1] != width or d.device.type != "cuda":
+        raise ValueError(
+            f"expected CUDA uint8 [..., {width}] {name}, got {d.dtype} {tuple(d.shape)} on {d.device}"
+        )
+
+
+def _table_rows(t: torch.Tensor, batch: torch.Size) -> tuple[torch.Tensor, int]:
+    """A window-table operand of :func:`shamir` as (contiguous rows, row
+    stride in limbs): one shared table has stride 0."""
+    if tuple(t.shape[-3:]) != _P256_TABLE or t.dtype != torch.int32 or t.device.type != "cuda":
+        raise ValueError(f"expected CUDA int32 [..., 16, 3, 9] tables, got {t.dtype} {tuple(t.shape)}")
+    if t.shape[:-3].numel() == 1:
+        return t.reshape(_P256_TABLE).contiguous(), 0
+    return t.expand(batch + t.shape[-3:]).contiguous(), TABLE * 3 * NLIMBS
+
+
+def shamir(tp: torch.Tensor, dP: torch.Tensor, tq: torch.Tensor, dQ: torch.Tensor) -> torch.Tensor:
+    """dP*P + dQ*Q on P-256 from window tables tp, tq [..., 16, 3, 9] and
+    MSB-first nibbles dP, dQ [..., 64] (uint8; batch dims broadcast) ->
+    [..., 3, 9].  Kernel ``csrc/shamir.cu`` (replaces
+    ``zkecdsa_tpu/ops/curve_ops.py:238 double_mul_tables``), the same
+    operation order as the plain version, so the projective coordinates
+    are the same.  A CPU tensor takes ``p256_ops.double_mul_tables``."""
+    if dP.device.type == "cpu":
+        return p256_ops.double_mul_tables(tp, dP, tq, dQ)
+    lib = _build.load()
+    _check_digits(dP, NDIGITS_256, "digits")
+    _check_digits(dQ, NDIGITS_256, "digits")
+    batch = torch.broadcast_shapes(tp.shape[:-3], tq.shape[:-3], dP.shape[:-1], dQ.shape[:-1])
+    (tp, sp), (tq, sq) = _table_rows(tp, batch), _table_rows(tq, batch)
+    dP = dP.expand(batch + (NDIGITS_256,)).contiguous()
+    dQ = dQ.expand(batch + (NDIGITS_256,)).contiguous()
+    out = torch.empty(batch + (3, NLIMBS), dtype=torch.int32, device=dP.device)
+    code = lib.zk_shamir(
+        batch.numel(), tp.data_ptr(), sp, dP.data_ptr(), tq.data_ptr(), sq, dQ.data_ptr(),
+        out.data_ptr(), _stream(dP),
+    )
+    _build.check(code, "zk_shamir")
+    shamir.launches += 1
+    return out
+
+
+shamir.launches = 0
+
+
+def comb4_table(P: torch.Tensor) -> torch.Tensor:
+    """Per-base 4-bit comb tables of P-256 points: [..., 3, 9] ->
+    [..., 64, 16, 3, 9], entry [j][d] = d * 16^(63-j) * P (replaces
+    ``curve_ops.py:194 comb4_table``): :func:`comb4_bases`, then
+    :func:`comb4_entries`.  A CPU tensor takes ``p256_ops.comb4_table``."""
+    if P.device.type == "cpu":
+        return p256_ops.comb4_table(P)
+    return comb4_entries(comb4_bases(P))
+
+
+def comb4_bases(P: torch.Tensor) -> torch.Tensor:
+    """The position bases of :func:`comb4_table`: [..., 3, 9] -> [..., 64,
+    3, 9], entry j = 16^(63-j) * P.  Kernel ``csrc/comb4.cu``: one thread
+    per base runs the serial chain of 252 doublings in the plain version's
+    order.  A CPU tensor takes ``p256_ops.comb4_bases``."""
+    if P.device.type == "cpu":
+        return p256_ops.comb4_bases(P)
+    lib = _build.load()
+    _check_points(p256_ops, P)
+    P = P.contiguous()
+    out = torch.empty(P.shape[:-2] + (NDIGITS_256, 3, NLIMBS), dtype=torch.int32, device=P.device)
+    code = lib.zk_comb4_bases(P.shape[:-2].numel(), P.data_ptr(), out.data_ptr(), _stream(P))
+    _build.check(code, "zk_comb4_bases")
+    comb4_bases.launches += 1
+    return out
+
+
+comb4_bases.launches = 0
+
+
+def comb4_entries(bases: torch.Tensor) -> torch.Tensor:
+    """The comb tables from their position bases: [..., 64, 3, 9] ->
+    [..., 64, 16, 3, 9].  Kernel ``csrc/comb4.cu``: one thread per (base,
+    position) builds the 16 entries in the plain version's order.  A CPU
+    tensor takes ``p256_ops.comb4_entries``."""
+    if bases.device.type == "cpu":
+        return p256_ops.comb4_entries(bases)
+    lib = _build.load()
+    _check_points(p256_ops, bases)
+    if bases.dim() < 3 or bases.shape[-3] != NDIGITS_256:
+        raise ValueError(f"expected [..., 64, 3, 9] position bases, got {tuple(bases.shape)}")
+    bases = bases.contiguous()
+    out = torch.empty(bases.shape[:-2] + _P256_TABLE, dtype=torch.int32, device=bases.device)
+    code = lib.zk_comb4_entries(bases.shape[:-3].numel(), bases.data_ptr(), out.data_ptr(), _stream(bases))
+    _build.check(code, "zk_comb4_entries")
+    comb4_entries.launches += 1
+    return out
+
+
+comb4_entries.launches = 0
+
+
+def mul_comb4(tab: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """S scalars per base from per-base comb tables: tab [..., 64, 16, 3,
+    9] and MSB-first nibbles [..., S, 64] (uint8, the same leading dims) ->
+    [..., S, 3, 9]; 64 gather-adds per scalar from the row's own table.
+    Kernel ``csrc/comb4.cu`` (replaces ``curve_ops.py:218 mul_comb4``),
+    one thread per scalar, in the plain version's order.  A CPU tensor
+    takes ``p256_ops.mul_comb4``."""
+    if digits.device.type == "cpu":
+        return p256_ops.mul_comb4(tab, digits)
+    lib = _build.load()
+    _check_digits(digits, NDIGITS_256, "digits")
+    lead = digits.shape[:-2]
+    if tuple(tab.shape) != tuple(lead) + (NDIGITS_256,) + _P256_TABLE or tab.dtype != torch.int32:
+        raise ValueError(f"expected int32 {tuple(lead)} + [64, 16, 3, 9] tables, got {tab.dtype} {tuple(tab.shape)}")
+    if tab.device != digits.device:
+        raise ValueError("tables and digits on different devices")
+    tab, digits = tab.contiguous(), digits.contiguous()
+    S = digits.shape[-2]
+    out = torch.empty(digits.shape[:-1] + (3, NLIMBS), dtype=torch.int32, device=digits.device)
+    code = lib.zk_mul_comb4(lead.numel(), S, tab.data_ptr(), digits.data_ptr(), out.data_ptr(), _stream(digits))
+    _build.check(code, "zk_mul_comb4")
+    mul_comb4.launches += 1
+    return out
+
+
+mul_comb4.launches = 0
+
+
+def comb_weier(comb: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
+    """Fixed-base multiply on P-256 from a comb table [32, 256, 3, 9] and
+    LSB-first byte digits [..., 32] (uint8) -> [..., 3, 9]: one complete
+    add per window, in window order.  Kernel ``csrc/comb.cu`` (replaces
+    ``curve_ops.py:330 mul_comb``).  A CPU tensor takes
+    ``p256_ops.mul_comb``."""
+    if d8.device.type == "cpu":
+        return p256_ops.mul_comb(comb, d8)
+    lib = _build.load()
+    _check_digits(d8, 32, "byte digits")
+    if tuple(comb.shape) != (32, 256, 3, NLIMBS) or comb.dtype != torch.int32:
+        raise ValueError(f"expected int32 [32, 256, 3, 9] tables, got {comb.dtype} {tuple(comb.shape)}")
+    if comb.device != d8.device:
+        raise ValueError("table and digits on different devices")
+    comb, d8 = comb.contiguous(), d8.contiguous()
+    out = torch.empty(d8.shape[:-1] + (3, NLIMBS), dtype=torch.int32, device=d8.device)
+    code = lib.zk_comb_weier(out.shape[:-2].numel(), comb.data_ptr(), d8.data_ptr(), out.data_ptr(), _stream(d8))
+    _build.check(code, "zk_comb_weier")
+    comb_weier.launches += 1
+    return out
+
+
+comb_weier.launches = 0

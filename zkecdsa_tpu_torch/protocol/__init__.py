@@ -1,2 +1,8 @@
-from .batch import DeviceParams, device_params_for, resolve_device  # noqa: F401
+from .batch import (  # noqa: F401
+    BatchProver,
+    DeviceParams,
+    batched_prove_signature_list,
+    device_params_for,
+    resolve_device,
+)
 from .batch_verify import BatchVerifier, batch_verify_signature_list  # noqa: F401

@@ -1,28 +1,81 @@
-"""Device parameters and host helpers of the batched pipeline: the parts of
-``zkecdsa_tpu/protocol/batch.py`` that the batched verifier uses.
+"""The batched ZKAttest prover and the device parameters of the batched
+pipeline: the port of ``zkecdsa_tpu/protocol/batch.py`` on its unsharded
+path (reference src/zkpAttestList.ts:104-145, src/exp/exp.ts:126-231 run
+per proof; here the device works on whole batches).
+
+* phase A (device, :func:`phase_a`): R and Q recovery, the commitments and
+  the 80 exp rounds' T/A/Tx/Ty for every instance at once, on the Shamir,
+  per-base comb, P-256 comb, Tom-256 comb, point-add and affine kernels;
+* challenge (host): Fiat-Shamir over the device's affine coordinates;
+* phase B (device, :func:`phase_b_flat`): the even-bit rounds of all
+  instances as one flat [K] row axis - T1 = T + D, the chord-rule field
+  pass (kernel ``chord``), the 34 commitments per row and the homomorphic
+  combinations the sub-proof hashes need;
+* GK membership (``batch_gk.batch_prove_membership``): the d-values on the
+  ring-fold kernel and the 4n commitments per instance on the comb kernel;
+* responses (host): scalar arithmetic and proof assembly, producing the
+  same ``SignatureProofList`` objects (and wire bytes) as the host scalar
+  prover.
+
+Randomness: each instance draws its tape in exactly the reference's order,
+so a batched proof is byte-identical to the host prover's under the same
+per-instance source.
 
 The reference builds its comb tables on the device; here they are built
-once per parameter set with the host curve arithmetic (8192 points per
-base, affine, then the five mixed-add rows) and uploaded, as the window
-tables already were.  The tables are the same group elements either way,
-and being affine their canonical coordinates are the same integers.
+once per parameter set with the host curve arithmetic and uploaded, as the
+window tables already were.  The tables are the same group elements either
+way; the Tom-256 tables are affine in both packages, so their canonical
+coordinates are the same integers, while the reference's P-256 table of h
+is projective and the port's is affine (Z = 1).  The proof wire only
+carries ``to_affine`` outputs, so the proofs are the same bytes.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
+from ..bignum import big
+from ..commit.equality import EqualityProof
+from ..commit.mult import MultProof
+from ..commit.pedersen import Commitment
 from ..curves.edwards import TEdwardsPoint
 from ..curves.instances import p256, tomEdwards256
 from ..curves.weier import WeierstrassPoint
-from ..ops.curve_ops import p256_ops, tom_ops
-from ..ops.field import FieldT
-from ..zkp_attest_list import SystemParametersList
+from ..exp.exp import ExpProof
+from ..exp.pointAdd import PointAddProof
+from ..ops.curve_ops import (
+    comb4_table,
+    comb_mixed,
+    comb_weier,
+    ec_add,
+    mul_comb4,
+    p256_ops,
+    shamir,
+    to_affine,
+    tom_ops,
+    window_table,
+)
+from ..ops.field import P256_N, TOM_N, FieldT, bytes_le, chord
+from ..utils import rng
+from ..utils.profiling import stages
+from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
+from .fiat_shamir import challenge_rows, point_bytes
 
-__all__ = ["DeviceParams", "device_params_for", "resolve_device"]
+__all__ = [
+    "BatchProver",
+    "DeviceParams",
+    "batched_prove_signature_list",
+    "device_params_for",
+    "phase_a",
+    "phase_b_flat",
+    "resolve_device",
+]
 
+SECPARAM = 80
 COMB_WINDOWS = 32  # 8-bit windows of a 256-bit scalar
 COMB_ENTRIES = 256
 
@@ -42,25 +95,32 @@ def resolve_device(device=None) -> torch.device:
 
 class DeviceParams:
     """Device-side precomputation for one SystemParametersList: the window
-    table of the P-256 generator G and the mixed-add comb tables of the
-    Tom-256 Pedersen bases g and h.  Construct via
-    :func:`device_params_for` to share one instance per parameter set and
-    device."""
+    tables of the P-256 generator G and Pedersen base h, the comb table of
+    h, and the mixed-add comb tables of the Tom-256 Pedersen bases g and h.
+    Construct via :func:`device_params_for` to share one instance per
+    parameter set and device."""
 
     def __init__(self, params: SystemParametersList, device) -> None:
         self.params = params
         self.device = torch.device(device)
         self.tab_G = self._host_table(p256_ops, p256.generator())
+        self.tab_h_nist = self._host_table(p256_ops, params.nist_group.h)
+        self.comb_h_nist = self._host_comb_weier(params.nist_group.h)
         self.comb_g_tom = self._host_comb_mixed(params.proof_group.g)
         self.comb_h_tom = self._host_comb_mixed(params.proof_group.h)
+        self._tabs: dict[str, torch.Tensor] | None = None
 
     def tabs(self) -> dict[str, torch.Tensor]:
-        """The tables the verifier phase takes, on the device."""
-        return {
-            "G": self.tab_G.to(self.device),
-            "g_t8": self.comb_g_tom.to(self.device),
-            "h_t8": self.comb_h_tom.to(self.device),
-        }
+        """The tables the phases take, on the device (uploaded once)."""
+        if self._tabs is None:
+            self._tabs = {
+                "G": self.tab_G.to(self.device),
+                "h_n": self.tab_h_nist.to(self.device),
+                "h_n8": self.comb_h_nist.to(self.device),
+                "g_t8": self.comb_g_tom.to(self.device),
+                "h_t8": self.comb_h_tom.to(self.device),
+            }
+        return self._tabs
 
     @staticmethod
     def _host_table(ops, base) -> torch.Tensor:
@@ -70,6 +130,24 @@ class DeviceParams:
         for _ in range(15):
             pts.append(pts[-1].add(base))
         return ops.pack_points(pts)
+
+    @staticmethod
+    def _host_comb_weier(base) -> torch.Tensor:
+        """[32, 256, 3, 9] P-256 comb table: entry [j][d] is the affine
+        point d * 2^(8j) * base with Z = 1; d = 0 is the identity (0:1:0)."""
+        p = p256.p
+        coords: list[int] = []
+        bj = base
+        for _ in range(COMB_WINDOWS):
+            pt = p256.identity()
+            coords += [0, 1, 0]
+            for _ in range(COMB_ENTRIES - 1):
+                pt = pt.add(bj)
+                zinv = pow(pt.z, -1, p)
+                coords += [pt.x * zinv % p, pt.y * zinv % p, 1]
+            for _ in range(8):
+                bj = bj.dbl()
+        return p256_ops.f.pack(coords).reshape(COMB_WINDOWS, COMB_ENTRIES, 3, -1)
 
     @staticmethod
     def _host_comb_mixed(base) -> torch.Tensor:
@@ -126,3 +204,554 @@ def _nist_pt(x: int, y: int) -> WeierstrassPoint:
 def _unp(ctx: FieldT, arr: torch.Tensor) -> list[int]:
     """Device results (canonical by contract) -> Python ints."""
     return ctx.unpack(arr)
+
+
+def nibbles(x: torch.Tensor) -> torch.Tensor:
+    """MSB-first 4-bit digits of canonical 256-bit limbs: [..., 9] ->
+    [..., 64] uint8 (a reinterpretation of the limbs' bytes)."""
+    b = bytes_le(x).flip(-1)
+    return torch.stack([b >> 4, b & 15], dim=-1).flatten(-2)
+
+
+def _gh_t8(tabs) -> torch.Tensor:
+    """The Tom-256 comb tables of g then h, as ``comb_mixed`` takes them."""
+    return torch.cat([tabs["g_t8"], tabs["h_t8"]], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# device phases
+# ---------------------------------------------------------------------------
+
+
+def phase_a(tabs, pk, u1, u2, z1, s1, com_r, pkx_v, pkx_r, pky_v, pky_r,
+            alpha, r_rnd, txr, tyr):
+    """Phase A of the prover for N instances.  pk [N, 3, 9] P-256 points;
+    every scalar is canonical limbs: u1, u2, z1, s1, com_r [N, 9] mod the
+    P-256 order; pkx_v, pkx_r, pky_v, pky_r [N, 9] mod the Tom-256 order;
+    alpha, r_rnd [N, 80, 9] mod the P-256 order; txr, tyr [N, 80, 9] mod the
+    Tom-256 order.  Every ``*_aff`` output is canonical affine limbs."""
+    N = pk.shape[0]
+    # R = u1*G + u2*PK (zkpAttestList.ts:125-131)
+    tab_pk = window_table(p256_ops, pk)
+    R = shamir(tabs["G"], nibbles(u1), tab_pk, nibbles(u2))
+    tab_R = window_table(p256_ops, R)
+    # comS1 = s1*R + com_r*h (pedersen.ts:53-58 with g := R) and
+    # Q = z1*G + 0*h (zkpAttestList.ts:133-136) as one Shamir call on
+    # [N, 2] rows (row 1's zero digits gather only identities)
+    tp = torch.stack([tab_R, tabs["G"].expand_as(tab_R)], dim=1)  # [N, 2, 16, 3, 9]
+    d_com = nibbles(com_r)
+    dP = torch.stack([nibbles(s1), nibbles(z1)], dim=1)
+    dQ = torch.stack([d_com, torch.zeros_like(d_com)], dim=1)
+    cq = shamir(tp, dP, tabs["h_n"], dQ)
+    comS1, Q = cq[:, 0], cq[:, 1]
+    # D = Q - comS1 + com_r*h: the per-instance constant of the even-round
+    # relation T1 = z*R + Q = T + D (see phase_b_flat)
+    Hc = comb_weier(tabs["h_n8"], bytes_le(com_r))
+    D = ec_add(p256_ops, ec_add(p256_ops, Q, p256_ops.neg(comS1)), Hc)
+    # 80 rounds: T_i = alpha_i * R from a per-instance comb table, and
+    # A_i = T_i + r_i * h (exp.ts:144-150)
+    T = mul_comb4(comb4_table(R), nibbles(alpha))  # [N, 80, 3, 9]
+    Hr = comb_weier(tabs["h_n8"], bytes_le(r_rnd))
+    A = ec_add(p256_ops, T, Hr)
+    # one P-256 affine pass: rows [R, Q, comS1] ++ T(80) ++ A(80)
+    nx, ny, _ = to_affine(p256_ops, torch.cat([torch.stack([R, Q, comS1], dim=1), T, A], dim=1))
+    Tx_v, Ty_v = nx[:, 3:83], ny[:, 3:83]
+    # one Tom-256 commit for pkX, pkY and the rounds' Tx/Ty coordinate
+    # commitments (exp.ts:151-156): rows [pkX, pkY] ++ [Tx_0, Ty_0, ...];
+    # P-256 coordinates are canonical Tom-256 scalars as they stand
+    vals = torch.cat(
+        [torch.stack([pkx_v, pky_v], dim=1),
+         torch.stack([Tx_v, Ty_v], dim=2).reshape(N, 2 * SECPARAM, -1)], dim=1,
+    )
+    blinds = torch.cat(
+        [torch.stack([pkx_r, pky_r], dim=1),
+         torch.stack([txr, tyr], dim=2).reshape(N, 2 * SECPARAM, -1)], dim=1,
+    )
+    allC = comb_mixed(_gh_t8(tabs), torch.cat([bytes_le(vals), bytes_le(blinds)], dim=-1))
+    tcx, tcy, _ = to_affine(tom_ops, allC)  # [N, 162, 9]
+    return {
+        "T": T, "D": D,
+        "TC": allC[:, 2:].reshape(N, SECPARAM, 2, 4, -1),
+        "pkC": allC[:, :2],
+        "small_aff": (nx[:, :3], ny[:, :3]),  # [N, 3 (R, Q, comS1), 9]
+        "TA_aff": (
+            torch.stack([nx[:, 3:83], nx[:, 83:]], dim=2),
+            torch.stack([ny[:, 3:83], ny[:, 83:]], dim=2),
+        ),  # [N, 80, 2 (T, A), 9]
+        "Tx_v": Tx_v,
+        "pk_aff": (tcx[:, :2], tcy[:, :2]),  # [N, 2, 9]
+        "TC_aff": (
+            tcx[:, 2:].reshape(N, SECPARAM, 2, -1),
+            tcy[:, 2:].reshape(N, SECPARAM, 2, -1),
+        ),  # [N, 80, 2, 9]
+    }
+
+
+def phase_b_flat(tabs, T, D, TxC, TyC, pkX, pkY, Tx_v, pkx_v, pky_v, pky_r,
+                 txr, com_vals, com_blinds, srcid):
+    """Phase B over the even-bit rounds of all instances, as one flat [K]
+    row axis (the reference's unsharded layout): ``srcid`` [K] holds each
+    row's flattened phase-A index i*80 + j, and padding rows repeat the
+    last real row.  Per-round device data (T, TxC, TyC, Tx_v and the
+    per-round blinding txr [N, 80, 9]) and per-instance data (D, pkX, pkY,
+    pkx_v, pky_v, pky_r [N, 9]) are gathered here; com_vals/com_blinds
+    [K, BK, 9] are the commit stack in ``_SLOT`` order, with value slots
+    0..5 filled here.
+
+    T1 = z*R + Q (exp.ts:190-193) is T + D: one point add per row.  The
+    four mult sub-proofs' C4_j = x_j * Cy_j and A42_j = kx_j * Cy_j
+    (pointAdd.ts:145-156, mult.ts:105-115) expand the Pedersen commitment
+    Cy_j = g*y_j + h*r_j into g*(x*y) + h*(x*r): 8 extra rows of the same
+    comb call.  The group elements are the reference's, and the affine pass
+    canonicalizes them."""
+    NR = T.shape[0] * T.shape[1]
+    inst = srcid // SECPARAM  # [K] instance of each row
+
+    def rounds(arr):  # [N, 80, ...] -> [K, ...]
+        return arr.reshape((NR,) + arr.shape[2:])[srcid]
+
+    TxC, TyC, Tx_v, T_e, txr_e = map(rounds, (TxC, TyC, Tx_v, T, txr))
+    pkX, pkY, D = pkX[inst], pkY[inst], D[inst]
+    T1 = ec_add(p256_ops, T_e, D)
+    t1x, t1y, _ = to_affine(p256_ops, T1)
+    # chord-rule intermediates and the C4/A42 expansions over the Tom order
+    # (pointAdd.ts:119-136): P := T1 (x1), Q := pk (x2), R := T (x3)
+    y = chord(torch.stack(
+        [t1x, t1y, pkx_v[inst], pky_v[inst], Tx_v, pky_r[inst], txr_e]
+        + list(com_blinds[:, :4].unbind(1)) + list(com_vals[:, 6:10].unbind(1)),
+        dim=1,
+    ))
+    ints, ext_vals, ext_blinds = y[:, :7], y[:, 7:15], y[:, 15:]
+    # value slots 0..5: t1x, t1y, i8, i10, i11, i13
+    fills = torch.stack([t1x, t1y, ints[:, 1], ints[:, 3], ints[:, 4], ints[:, 6]], dim=1)
+    vals = torch.cat([fills, com_vals[:, 6:], ext_vals], dim=1)
+    blinds = torch.cat([com_blinds, ext_blinds], dim=1)
+    commits = comb_mixed(_gh_t8(tabs), torch.cat([bytes_le(vals), bytes_le(blinds)], dim=-1))
+    # [K, BK+8, 4, 9]: slots 26..29 = C4_j, 30..33 = A42_j
+    T1xC, T1yC = commits[:, 0], commits[:, 1]
+    # homomorphic difference commitments (pointAdd.ts:124-143), hash inputs
+    # only: C9 = pkY - T1yC, C12 = T1xC - TxC, C7 = pkX - T1xC,
+    # cintX = (TxC + T1xC) + pkX, cintY = TyC + T1yC
+    neg = tom_ops.neg
+    s = ec_add(
+        tom_ops,
+        torch.stack([pkY, T1xC, pkX, TxC, TyC], dim=1),
+        torch.stack([neg(T1yC), neg(TxC), neg(T1xC), T1xC, T1yC], dim=1),
+    )
+    cintX = ec_add(tom_ops, s[:, 3], pkX)
+    combos = torch.stack([s[:, 2], s[:, 0], s[:, 1], cintX, s[:, 4]], dim=1)
+    sx, sy, _ = to_affine(tom_ops, torch.cat([commits, combos], dim=1))  # [K, NSLOT, 9]
+    return {"tom_aff": (sx, sy), "ints": ints}
+
+
+# Slot order of the stacked phase-B Pedersen commitments.  Values for slots
+# 0..5 are computed on device; the host only supplies blindings there.
+# 0 t1x (T1x commit)   1 t1y   2 i8 (C_8)   3 i10 (C_10)   4 i11 (C_11)
+# 5 i13 (C_13)   6..9 kx_j (A_x)   10..13 ky_j (A_y)   14..17 kz_j (A_z)
+# 18..21 kz_j (A_4_1)   22..23 keq_j (A_1)   24..25 keq_j (A_2)
+BK = 26  # commit-stack width
+_SLOT = {
+    "T1x": 0, "T1y": 1, "C8": 2, "C10": 3, "C11": 4, "C13": 5,
+    "Ax": 6, "Ay": 10, "Az": 14, "A41": 18, "A1": 22, "A2": 24,
+    "C4": 26, "A42": 30,  # appended after the commit stack in tom_aff
+    # device-computed homomorphic combinations (hash inputs only)
+    "C7": 34, "C9": 35, "C12": 36, "CIX": 37, "CIY": 38,
+}
+NSLOT = BK + 13  # commit stack + C4s + A42s + 5 combos
+
+
+class _Tape:
+    """Per-instance randomness drawn in exactly the reference's order."""
+
+    def __init__(self, source: rng.RandomSource) -> None:
+        self.source = source
+
+    def rnd_many(self, moduli) -> list[int]:
+        """Bulk draws, byte-stream-identical to sequential ``rnd`` calls
+        (big.rnd_many)."""
+        return big.rnd_many(moduli, self.source)
+
+
+# ---------------------------------------------------------------------------
+# the batched prover
+# ---------------------------------------------------------------------------
+
+
+class BatchProver:
+    """Proves batches of signatures against one parameter set on
+    ``device`` (CUDA unless the caller names another; ``device="cpu"``
+    runs the plain PyTorch versions)."""
+
+    # Largest sub-batch one prove pass handles: the per-instance comb4
+    # tables take 110 KB each, the phase-B rows ~40 per instance.  Larger
+    # batches chunk transparently: instances are independent, so chunked
+    # proofs are byte-identical to unchunked.
+    MAX_CHUNK = 256
+
+    def __init__(self, params: SystemParametersList, device=None) -> None:
+        self.device = resolve_device(device)
+        self.params = params
+        self.dev = device_params_for(params, self.device)
+        self.tabs = self.dev.tabs()
+
+    def prove(
+        self,
+        msg_hashes: Sequence[bytes],
+        sig_bytes: Sequence[bytes],
+        public_keys_raw: Sequence[bytes],
+        whichs: Sequence[int],
+        keys: list[int],
+        tapes: Optional[Sequence[rng.RandomSource]] = None,
+        timer=None,
+    ) -> list[SignatureProofList]:
+        N_all = len(msg_hashes)
+        if tapes is None:
+            tapes = [rng.get_source() for _ in range(N_all)]
+        if N_all > self.MAX_CHUNK:
+            out: list[SignatureProofList] = []
+            for lo in range(0, N_all, self.MAX_CHUNK):
+                hi = min(lo + self.MAX_CHUNK, N_all)
+                out.extend(self.prove(
+                    msg_hashes[lo:hi], sig_bytes[lo:hi], public_keys_raw[lo:hi],
+                    whichs[lo:hi], keys, tapes[lo:hi], timer=timer,
+                ))
+            return out
+
+        stage = stages(timer)
+        params = self.params
+        device = self.device
+        N = len(msg_hashes)
+        if params.sec_level != SECPARAM:
+            raise ValueError("batched prover supports sec_level == 80")
+        if N == 0:
+            return []
+        tapes = [_Tape(t) for t in tapes]
+        n_ord = p256.order
+        t_ord = tomEdwards256.order
+        fn, fo = P256_N, TOM_N
+
+        # ---- host: parse signatures (zkpAttestList.ts:113-136) ----
+        pk_pts = [p256.deserialize_point(pk) for pk in public_keys_raw]
+        pk_coords = [pt.to_affine() for pt in pk_pts]
+        u1s, u2s, s1s, z1s = [], [], [], []
+        for mh, sb in zip(msg_hashes, sig_bytes):
+            z = _truncate_to_n(big.from_bytes(mh), n_ord)
+            half = len(sb) // 2
+            r = big.from_bytes(sb[:half])
+            s = big.from_bytes(sb[half:])
+            sinv = big.inv_mod(s, n_ord)
+            rinv = big.inv_mod(r, n_ord)
+            u1s.append(sinv * z % n_ord)
+            u2s.append(sinv * r % n_ord)
+            s1s.append(rinv * s % n_ord)
+            z1s.append(rinv * z % n_ord)
+
+        # ---- tape: phase-A randomness, reference order per instance:
+        # com_r, pkx_r, pky_r, then 80x (alpha, r_rnd, txr, tyr) ----
+        with stage("tape.phase_a"):
+            com_r, pkx_r, pky_r = [], [], []
+            alpha = [[0] * SECPARAM for _ in range(N)]
+            r_rnd = [[0] * SECPARAM for _ in range(N)]
+            txr = [[0] * SECPARAM for _ in range(N)]
+            tyr = [[0] * SECPARAM for _ in range(N)]
+            moduli_a = [n_ord, t_ord, t_ord] + [n_ord, n_ord, t_ord, t_ord] * SECPARAM
+            for i, tape in enumerate(tapes):
+                d = tape.rnd_many(moduli_a)
+                com_r.append(d[0])
+                pkx_r.append(d[1])
+                pky_r.append(d[2])
+                for j in range(SECPARAM):
+                    alpha[i][j], r_rnd[i][j], txr[i][j], tyr[i][j] = d[3 + 4 * j : 7 + 4 * j]
+
+        def pack(ctx, vals):  # [N, 9]
+            return _pk_scalars(ctx, vals, device)
+
+        def pack2(ctx, rows):  # [N, 80, 9]
+            return _pk_scalars(ctx, [v for row in rows for v in row], device).reshape(N, SECPARAM, -1)
+
+        with stage("phase_a.pack"):
+            pkx_v = pack(fo, [c[0] for c in pk_coords])
+            pky_v = pack(fo, [c[1] for c in pk_coords])
+            pky_r_d = pack(fo, pky_r)
+            txr_d = pack2(fo, txr)
+            a_args = (
+                self.tabs, p256_ops.pack_points(pk_pts, device),
+                pack(fn, u1s), pack(fn, u2s), pack(fn, z1s), pack(fn, s1s), pack(fn, com_r),
+                pkx_v, pack(fo, pkx_r), pky_v, pky_r_d,
+                pack2(fn, alpha), pack2(fn, r_rnd), txr_d, pack2(fo, tyr),
+            )
+        with stage("phase_a.device"):
+            a = phase_a(*a_args)
+
+        # host point objects for hashing / assembly
+        with stage("phase_a.unpack"):
+            sm_x = _unp(p256_ops.f, a["small_aff"][0])  # [N*3]: R, Q, comS1
+            sm_y = _unp(p256_ops.f, a["small_aff"][1])
+            R_pts = [_nist_pt(sm_x[i * 3], sm_y[i * 3]) for i in range(N)]
+            com_pts = [_nist_pt(sm_x[i * 3 + 2], sm_y[i * 3 + 2]) for i in range(N)]
+            pk_x = _unp(tom_ops.f, a["pk_aff"][0])  # [N*2]: pkX, pkY
+            pk_y = _unp(tom_ops.f, a["pk_aff"][1])
+            pkX_pts = [_tom_pt(pk_x[i * 2], pk_y[i * 2]) for i in range(N)]
+            pkY_pts = [_tom_pt(pk_x[i * 2 + 1], pk_y[i * 2 + 1]) for i in range(N)]
+            a_x = _unp(p256_ops.f, a["TA_aff"][0][:, :, 1])  # [N*80]: A
+            a_y = _unp(p256_ops.f, a["TA_aff"][1][:, :, 1])
+            tc_x = _unp(tom_ops.f, a["TC_aff"][0])  # [N*80*2]: TxC, TyC
+            tc_y = _unp(tom_ops.f, a["TC_aff"][1])
+
+            def tc(i, j, s):
+                k = (i * SECPARAM + j) * 2 + s
+                return tc_x[k], tc_y[k]
+
+            A_pts = [[_nist_pt(a_x[i * SECPARAM + j], a_y[i * SECPARAM + j])
+                      for j in range(SECPARAM)] for i in range(N)]
+            TxC_pts = [[_tom_pt(*tc(i, j, 0)) for j in range(SECPARAM)] for i in range(N)]
+            TyC_pts = [[_tom_pt(*tc(i, j, 1)) for j in range(SECPARAM)] for i in range(N)]
+
+        # ---- challenges (exp.ts:158-165), from the device's canonical
+        # affine coordinates ----
+        with stage("challenges.hash"):
+            fbt, fbn = 33, 32  # Tom / P-256 coordinate widths
+            pk_b = point_bytes(a["pk_aff"][0], a["pk_aff"][1], fbt).reshape(N, 2 * (1 + 2 * fbt))
+            A_b = point_bytes(
+                a["TA_aff"][0][:, :, 1], a["TA_aff"][1][:, :, 1], fbn
+            ).reshape(N, SECPARAM, 1 + 2 * fbn)
+            tc_b = point_bytes(a["TC_aff"][0], a["TC_aff"][1], fbt).reshape(
+                N, SECPARAM, 2 * (1 + 2 * fbt)
+            )
+            rounds_b = np.concatenate([A_b, tc_b], axis=2).reshape(N, -1)
+            challenges = challenge_rows([pk_b, rounds_b])
+
+        # ---- tape: phase-B randomness (even bits only, reference order) --
+        with stage("tape.phase_b"):
+            zvals = [[0] * SECPARAM for _ in range(N)]
+            names_b = ("t1x_r", "t1y_r", "c8_r", "c10_r", "c11_r", "c13_r")
+            tape_b = {k: [[0] * SECPARAM for _ in range(N)] for k in names_b}
+
+            def per_round(w):
+                return [[[0] * w for _ in range(SECPARAM)] for _ in range(N)]
+
+            kx, ky, kz, axr, ayr, azr, a41r = (per_round(4) for _ in range(7))
+            keq, a1r, a2r = (per_round(2) for _ in range(3))
+            even_mask = [[False] * SECPARAM for _ in range(N)]
+            for i, tape in enumerate(tapes):
+                ch = challenges[i]
+                ev = []
+                for j in range(SECPARAM):
+                    zvals[i][j] = (alpha[i][j] - s1s[i]) % n_ord
+                    if not (ch & 1):
+                        even_mask[i][j] = True
+                        ev.append(j)
+                    ch >>= 1
+                # 40 Tom-order draws per even round, in the sequential
+                # order: the prove_exp even branch (exp.ts:195-200)
+                # t1x_r/t1y_r, the provePointAdd commits C8/C10/C11/C13
+                # (pointAdd.ts:138-143), then the sub-proofs pi8, pi10,
+                # pi11, pix, pi13, piy (7 draws per mult proof, 3 per
+                # equality proof)
+                d = tape.rnd_many([t_ord] * (40 * len(ev)))
+                p = 0
+                for j in ev:
+                    for nm in names_b:
+                        tape_b[nm][i][j] = d[p]
+                        p += 1
+                    for sub in ("m0", "m1", "m2", "e0", "m3", "e1"):
+                        if sub.startswith("m"):
+                            jj = int(sub[1])
+                            (
+                                kx[i][j][jj], ky[i][j][jj], kz[i][j][jj],
+                                axr[i][j][jj], ayr[i][j][jj], azr[i][j][jj],
+                                a41r[i][j][jj],
+                            ) = d[p : p + 7]
+                            p += 7
+                        else:
+                            jj = int(sub[1])
+                            keq[i][j][jj], a1r[i][j][jj], a2r[i][j][jj] = d[p : p + 3]
+                            p += 3
+
+        # one flat [K] row axis over all instances' even rounds, K
+        # quantized to 64 (K_real <= 512) or 512; padding repeats the last
+        # real row; an all-odd batch computes one placeholder row
+        with stage("phase_b.pack"):
+            pairs = [(i, j) for i in range(N) for j in range(SECPARAM) if even_mask[i][j]]
+            K_real = len(pairs)
+            if not pairs:
+                pairs = [(0, 0)]
+            quantum = 64 if K_real <= 512 else 512
+            K = max(quantum, -(-K_real // quantum) * quantum)
+            pairs_p = pairs + [pairs[-1]] * (K - len(pairs))
+            vals_rows, blind_rows = [], []
+            for i, j in pairs_p:
+                vals_rows += [0] * 6  # device fills t1x, t1y, i8, i10, i11, i13
+                vals_rows += kx[i][j] + ky[i][j] + kz[i][j] + kz[i][j]
+                vals_rows += keq[i][j] + keq[i][j]
+                blind_rows += [tape_b[nm][i][j] for nm in names_b]
+                blind_rows += axr[i][j] + ayr[i][j] + azr[i][j] + a41r[i][j]
+                blind_rows += a1r[i][j] + a2r[i][j]
+            srcid = torch.tensor([i * SECPARAM + j for i, j in pairs_p], dtype=torch.int64,
+                                 device=device)
+            com_vals = _pk_scalars(fo, vals_rows, device).reshape(K, BK, -1)
+            com_blinds = _pk_scalars(fo, blind_rows, device).reshape(K, BK, -1)
+
+        with stage("phase_b.device"):
+            b = phase_b_flat(
+                self.tabs, a["T"], a["D"], a["TC"][:, :, 0], a["TC"][:, :, 1],
+                a["pkC"][:, 0], a["pkC"][:, 1], a["Tx_v"],
+                pkx_v, pky_v, pky_r_d, txr_d, com_vals, com_blinds, srcid,
+            )
+
+        # ---- batched GK membership (tape order per instance: after the
+        # exp draws, zkpAttestList.ts:141-142); launched while phase B
+        # runs on the card ----
+        from .batch_gk import batch_prove_membership
+
+        tsc = tomEdwards256.new_scalar
+        gk_proofs = batch_prove_membership(
+            params.proof_group,
+            [Commitment(pkX_pts[i], tsc(pkx_r[i])) for i in range(N)],
+            whichs, keys, [t.source for t in tapes], dev=self.dev, timer=timer,
+        )
+
+        with stage("phase_b.unpack"):
+            # valid rows, in (i, ascending j) order, are the first K_real;
+            # ``pos`` maps (i, j) to its row
+            emask = np.asarray(even_mask)  # [N, 80]
+            pos = np.full((N, SECPARAM), -1, np.int64)
+            pos[emask] = np.arange(int(emask.sum()))
+            ints = _unp(fo, b["ints"][:K_real])  # [K_real*7]: i7..i13 per row
+            ex = b["tom_aff"][0][:K_real].cpu()  # [K_real, NSLOT, 9]
+            ey = b["tom_aff"][1][:K_real].cpu()
+            tom_x = _unp(tom_ops.f, ex[:, : BK + 8])
+            tom_y = _unp(tom_ops.f, ey[:, : BK + 8])
+
+        # ---- sub-proof Fiat-Shamir (pointAdd.ts:116, mult.ts:116,
+        # equality.ts:66): all six challenges of every even row ----
+        with stage("subproof.hash"):
+            pb = point_bytes(ex, ey, 33).reshape(K_real, NSLOT, 67)
+            g_b = np.broadcast_to(
+                np.frombuffer(params.proof_group.g.to_bytes(), np.uint8), (K_real, 67)
+            )
+            S = _SLOT
+
+            def sl(name, off=0):
+                return pb[:, S[name] + off]
+
+            def mult_msg(cx, cy, cz, jj):
+                return [cx, cy, cz] + [sl(nm, jj) for nm in ("C4", "Ax", "Ay", "Az", "A41", "A42")]
+
+            c_pi8 = challenge_rows(mult_msg(sl("C7"), sl("C8"), g_b, 0))
+            c_pi10 = challenge_rows(mult_msg(sl("C8"), sl("C9"), sl("C10"), 1))
+            c_pi11 = challenge_rows(mult_msg(sl("C10"), sl("C10"), sl("C11"), 2))
+            c_pix = challenge_rows([sl("C11"), sl("CIX"), sl("A1", 0), sl("A2", 0)])
+            c_pi13 = challenge_rows(mult_msg(sl("C10"), sl("C12"), sl("C13"), 3))
+            c_piy = challenge_rows([sl("C13"), sl("CIY"), sl("A1", 1), sl("A2", 1)])
+
+        # ---- assemble the exp proofs per instance and round ----
+        with stage("assembly"):
+            proofs = []
+            for i in range(N):
+                exp_proofs = []
+                for j in range(SECPARAM):
+                    A_p, Tx_p, Ty_p = A_pts[i][j], TxC_pts[i][j], TyC_pts[i][j]
+                    if not even_mask[i][j]:
+                        exp_proofs.append(ExpProof(
+                            A_p, Tx_p, Ty_p,
+                            alpha=p256.new_scalar(alpha[i][j]),
+                            beta1=p256.new_scalar(r_rnd[i][j]),
+                            beta2=tsc(txr[i][j]),
+                            beta3=tsc(tyr[i][j]),
+                        ))
+                        continue
+                    k = pos[i, j]  # even-round row
+                    exp_proofs.append(self._even_round(
+                        k, tom_x, tom_y, ints[7 * k : 7 * k + 7],
+                        (c_pi8[k], c_pi10[k], c_pi11[k], c_pix[k], c_pi13[k], c_piy[k]),
+                        {nm: tape_b[nm][i][j] for nm in names_b},
+                        (pkx_r[i], pky_r[i], txr[i][j], tyr[i][j]),
+                        (kx[i][j], ky[i][j], kz[i][j], axr[i][j], ayr[i][j], azr[i][j],
+                         a41r[i][j], keq[i][j], a1r[i][j], a2r[i][j]),
+                        A_p, Tx_p, Ty_p,
+                        z=zvals[i][j], z2=(r_rnd[i][j] - com_r[i]) % n_ord,
+                    ))
+                proofs.append(SignatureProofList(
+                    R_pts[i], com_pts[i], pkX_pts[i], pkY_pts[i], exp_proofs, gk_proofs[i],
+                ))
+        return proofs
+
+    @staticmethod
+    def _even_round(k, tom_x, tom_y, ints, chals, tb, blinds, nonces, A_p, Tx_p, Ty_p, z, z2):
+        """The ExpProof of an even-bit round from its phase-B row ``k``:
+        point-add sub-proof assembly in integer arithmetic mod the Tom-256
+        order (pointAdd.ts:116-259 responses)."""
+        t_ord = tomEdwards256.order
+        tsc = tomEdwards256.new_scalar
+        i7, i8, i9, i10, i11, i12, i13 = ints
+        c8, c10, c11, cx, c13, cy = chals
+        qx_r, qy_r, rx_r, ry_r = blinds
+        kx_r, ky_r, kz_r, axr_r, ayr_r, azr_r, a41r_r, keq_r, a1r_r, a2r_r = nonces
+        base_k = k * (BK + 8)
+
+        def pt_at(slot):
+            return _tom_pt(tom_x[base_k + slot], tom_y[base_k + slot])
+
+        # blinding scalars of the commitments and their homomorphic
+        # combinations (pointAdd.ts:124-138)
+        px_r, py_r = tb["t1x_r"], tb["t1y_r"]
+        C7r = (qx_r - px_r) % t_ord
+        C9r = (qy_r - py_r) % t_ord
+        C12r = (px_r - rx_r) % t_ord
+        cintXr = (rx_r + px_r + qx_r) % t_ord
+        cintYr = (ry_r + py_r) % t_ord
+        C8r, C10r, C11r, C13r = tb["c8_r"], tb["c10_r"], tb["c11_r"], tb["c13_r"]
+        S = _SLOT
+
+        def mk_mult(jj, c, x, y, zv, rx, ry, rz):
+            r4 = ry * x  # Cy.r * x (mult.ts:105 auxiliary blinding)
+            return MultProof(
+                pt_at(S["C4"] + jj), pt_at(S["Ax"] + jj), pt_at(S["Ay"] + jj),
+                pt_at(S["Az"] + jj), pt_at(S["A41"] + jj), pt_at(S["A42"] + jj),
+                tsc(kx_r[jj] - c * x),
+                tsc(ky_r[jj] - c * y),
+                tsc(kz_r[jj] - c * zv),
+                tsc(axr_r[jj] - c * rx),
+                tsc(ayr_r[jj] - c * ry),
+                tsc(azr_r[jj] - c * rz),
+                tsc(a41r_r[jj] - c * r4),
+            )
+
+        def mk_eq(jj, c, x, r1, r2):
+            return EqualityProof(
+                pt_at(S["A1"] + jj), pt_at(S["A2"] + jj),
+                tsc(keq_r[jj] - c * x),
+                tsc(a1r_r[jj] - c * r1),
+                tsc(a2r_r[jj] - c * r2),
+            )
+
+        pa = PointAddProof(
+            pt_at(S["C8"]), pt_at(S["C10"]), pt_at(S["C11"]), pt_at(S["C13"]),
+            mk_mult(0, c8, i7, i8, 1, C7r, C8r, 0),
+            mk_mult(1, c10, i8, i9, i10, C8r, C9r, C10r),
+            mk_mult(2, c11, i10, i10, i11, C10r, C10r, C11r),
+            mk_mult(3, c13, i10, i12, i13, C10r, C12r, C13r),
+            mk_eq(0, cx, i11, C11r, cintXr),
+            mk_eq(1, cy, i13, C13r, cintYr),
+        )
+        return ExpProof(
+            A_p, Tx_p, Ty_p,
+            z=p256.new_scalar(z), z2=p256.new_scalar(z2), proof=pa,
+            r1=tsc(px_r), r2=tsc(py_r),
+        )
+
+
+def batched_prove_signature_list(
+    params: SystemParametersList,
+    msg_hashes: Sequence[bytes],
+    sig_bytes: Sequence[bytes],
+    public_keys_raw: Sequence[bytes],
+    whichs: Sequence[int],
+    keys: list[int],
+    tapes: Optional[Sequence[rng.RandomSource]] = None,
+    device=None,
+) -> list[SignatureProofList]:
+    return BatchProver(params, device).prove(
+        msg_hashes, sig_bytes, public_keys_raw, whichs, keys, tapes
+    )

@@ -1,20 +1,52 @@
-"""Batched Groth-Kohlweiss verification on device: the verifier half of
+"""Batched Groth-Kohlweiss membership on device: the port of
 ``zkecdsa_tpu/protocol/batch_gk.py``.
 
-The verifier's O(N_ring * n) recombination (gk.ts:239-250) is the bitwise
-ring contraction of :func:`zkecdsa_tpu_torch.ops.field.ring_fold` - one
-pair-form field_mul launch per ring-index bit - and the bit relations
-drain into the caller's MultiMult on the host.
+The prover's hot loop is the d-polynomial evaluation (gk.ts:135-171): for
+each of n evaluation points w, d(w) = sum_i (v_index - v_i) * p_i(w) with
+p_i(w) = prod_j f_{bit_j(i),j}(w).  Since sum_i p_i(w) = prod_j (f0_j +
+f1_j), this is v_index * prod_j (f0_j + f1_j) - fold(w), where fold is the
+bitwise ring contraction of :func:`zkecdsa_tpu_torch.ops.field.ring_fold`
+(one pair-form field_mul launch per ring-index bit).  All N*n points go
+through ONE ring_fold call: the n*n factor values per instance are a few
+host modular operations each, and the products and differences finish on
+the host.  The 4n Pedersen commitments per instance run as one comb-kernel
+batch.
+
+The verifier's O(N_ring * n) recombination (gk.ts:239-250) is the same
+contraction; the bit relations drain into the caller's MultiMult on the
+host.  Both halves give the host path's integers, so
+``batch_prove_membership`` emits byte-identical GKProof objects for the
+same random tape.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
+from ..bignum import big
+from ..commit.pedersen import Commitment, PedersenParams
+from ..curves.edwards import TEdwardsPoint
+from ..curves.group import hash_points
+from ..curves.instances import tomEdwards256
 from ..curves.multimult import Relation
-from ..ops.field import ring_fold
+from ..ops.curve_ops import comb_mixed, to_affine, tom_ops
+from ..ops.field import TOM_N, bytes_le, ring_fold
+from ..proofGK.gk import GKProof, _pad, gk_statement_bind
+from ..proofGK.interpolate import interpolate
+from ..utils import rng
+from ..utils.profiling import stages
+from .fiat_shamir import challenge_rows, point_bytes
 
-__all__ = ["gk_recombine_device", "aggregate_membership"]
+__all__ = [
+    "gk_dvalues_device",
+    "gk_recombine_device",
+    "batch_prove_membership",
+    "aggregate_membership",
+]
+
+fo = TOM_N
 
 
 def _ring_len(n_values: int) -> tuple[int, int]:
@@ -31,6 +63,133 @@ def gk_recombine_device(
     """total = sum_i v_i * prod_j (f_j if bit_j(i) else x-f_j): [N, 9]
     canonical, mod the Tom-256 order."""
     return ring_fold(values, f, xf)
+
+
+def gk_dvalues_device(
+    eli: list[list[int]],  # [N][n] index bits, LSB first
+    ai: list[list[int]],  # [N][n] the prover's a_j
+    values: list[int],  # [RING] padded ring values
+    v_index: list[int],  # [N] values[which] per instance
+    device,
+) -> list[list[int]]:
+    """d-polynomial values at omega = 0..n-1 per instance: [N][n] ints
+    mod the Tom-256 order (gk.ts:135-171).
+
+    Row (i, w) of one ring_fold over N*n rows takes factors1 = f1_j(w) =
+    el_j*w + a_j and factors0 = f0_j(w) = (1-el_j)*w - a_j, computed here
+    from the host integers; then d = v_index * prod_j (f0_j + f1_j) - fold,
+    where f0_j + f1_j = w, so the product is w^n."""
+    order = fo.p
+    N = len(eli)
+    n = len(eli[0]) if N else 0
+    f0s, f1s = [], []
+    for i in range(N):
+        for w in range(n):
+            for el, a in zip(eli[i], ai[i]):
+                f0s.append(((1 - el) * w - a) % order)
+                f1s.append((el * w + a) % order)
+    fold = fo.unpack(ring_fold(
+        fo.pack(values, device),
+        fo.pack(f1s, device).reshape(N * n, n, -1),
+        fo.pack(f0s, device).reshape(N * n, n, -1),
+    ))
+    return [
+        [(v_index[i] * pow(w, n, order) - fold[i * n + w]) % order for w in range(n)]
+        for i in range(N)
+    ]
+
+
+def _gk_commit_device(tabs, v: torch.Tensor, r: torch.Tensor):
+    """Batched Pedersen commits g*v + h*r on the comb kernel, for canonical
+    scalar limbs v, r [M, 9], as canonical affine coordinates (x, y)
+    [M, 9] (replaces per-instance host double-mults, gk.ts:88-92)."""
+    gh = torch.cat([tabs["g_t8"], tabs["h_t8"]], dim=0)
+    C = comb_mixed(gh, torch.cat([bytes_le(v), bytes_le(r)], dim=-1))
+    x, y, _ = to_affine(tom_ops, C)
+    return x, y
+
+
+def batch_prove_membership(
+    params: PedersenParams,
+    coms: Sequence[Commitment],
+    indices: Sequence[int],
+    initial_values: list[int],
+    tapes: Sequence[rng.RandomSource],
+    dev,
+    timer=None,
+) -> list[GKProof]:
+    """Batched prover, byte-identical to gk.prove_membership per tape.
+    The d-values and the 4n Pedersen commitments per instance (one comb
+    batch) run on ``dev.device``; ``dev`` is the parameter set's
+    ``protocol.batch.DeviceParams``."""
+    stage = stages(timer)
+    c = params.c
+    order = c.order
+    N = len(coms)
+    values_s = _pad(initial_values, c)
+    RING, n = _ring_len(len(initial_values))
+
+    # tape (reference order: per bit ri, ai, si, ti, rho; gk.ts:112-123)
+    ri = [[0] * n for _ in range(N)]
+    ai = [[0] * n for _ in range(N)]
+    si = [[0] * n for _ in range(N)]
+    ti = [[0] * n for _ in range(N)]
+    rho = [[0] * n for _ in range(N)]
+    with stage("gk.tape"):
+        for i, tape in enumerate(tapes):
+            d = big.rnd_many([order] * (5 * n), tape)
+            for j in range(n):
+                ri[i][j], ai[i][j], si[i][j], ti[i][j], rho[i][j] = d[5 * j : 5 * j + 5]
+    eli = [[(indices[i] >> j) & 1 for j in range(n)] for i in range(N)]
+    if n == 0:  # a ring of one key: no bits, no commitments
+        commit_pts = [[] for _ in range(N)]
+        x_batch = [hash_points([])] * N
+    else:
+        with stage("gk.dvalues"):
+            dvals = gk_dvalues_device(
+                eli, ai, [v.k for v in values_s], [values_s[k].k for k in indices], dev.device
+            )
+        # interpolate (host; n x n per instance)
+        di_all = [interpolate(list(range(n)), dvals[i], order) for i in range(N)]
+        with stage("gk.commits"):
+            vals: list[int] = []
+            blinds: list[int] = []
+            for i in range(N):
+                vals += eli[i]
+                vals += ai[i]
+                vals += [eli[i][j] * ai[i][j] % order for j in range(n)]
+                vals += list(di_all[i])
+                blinds += ri[i] + si[i] + ti[i] + rho[i]
+            cx, cy = _gk_commit_device(
+                dev.tabs(), fo.pack(vals, dev.device), fo.pack(blinds, dev.device)
+            )
+            xs, ys = tom_ops.f.unpack(cx), tom_ops.f.unpack(cy)
+            commit_pts = [
+                [TEdwardsPoint(tomEdwards256, xs[i * 4 * n + t], ys[i * 4 * n + t])
+                 for t in range(4 * n)]
+                for i in range(N)
+            ]
+            # challenge x = H(cl || ca || cb || cd) per instance (gk.ts:
+            # 179-180; the statement deliberately not hashed, SURVEY 7.5),
+            # from the device's affine bytes
+            x_batch = challenge_rows([point_bytes(cx, cy, 33).reshape(N, 4 * n * 67)])
+
+    # responses + proof assembly (host)
+    with stage("gk.assemble"):
+        proofs = []
+        for i in range(N):
+            row = commit_pts[i]
+            cl, ca = row[:n], row[n : 2 * n]
+            cb, cd = row[2 * n : 3 * n], row[3 * n : 4 * n]
+            x = gk_statement_bind(x_batch[i], coms[i].p, values_s)
+            f = [c.new_scalar((eli[i][j] * x + ai[i][j]) % order) for j in range(n)]
+            za = [c.new_scalar((ri[i][j] * x + si[i][j]) % order) for j in range(n)]
+            zb = [c.new_scalar((ri[i][j] * (x - f[j].k) + ti[i][j]) % order) for j in range(n)]
+            zd = coms[i].r.k * pow(x, n, order) % order
+            for j in range(n):
+                zd = (zd - rho[i][j] * pow(x, j, order)) % order
+            proofs.append(GKProof(cl, ca, cb, cd, f, za, zb, c.new_scalar(zd)))
+    return proofs
 
 
 def aggregate_membership(params, com, n: int, proof, x: int,

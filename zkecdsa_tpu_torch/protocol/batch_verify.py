@@ -25,7 +25,6 @@ on one malformed proof.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Sequence
 
 import numpy as np
@@ -54,6 +53,7 @@ from ..ops.field import TOM_N, bytes_le
 from ..proofGK.gk import _pad, gk_statement_bind
 from ..runtime import native
 from ..utils.config import get_config
+from ..utils.profiling import stages
 from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
 from .batch import _nist_pt, _pk_scalars, _tom_pt, _unp, device_params_for, resolve_device
 from .batch_gk import _ring_len, aggregate_membership, gk_recombine_device
@@ -117,10 +117,6 @@ def vphase(tabs, R, z1d, md, bits, rb8):
 MSM_TABLE_BYTES = 8 << 30
 
 
-def _stage(timer):
-    return timer.stage if timer is not None else (lambda _n: contextlib.nullcontext())
-
-
 def _msm_rows(ops, arr: torch.Tensor, digits: torch.Tensor) -> list[torch.Tensor]:
     """straus_msm over row blocks that keep the window tables in budget."""
     R, T = arr.shape[0], arr.shape[1]
@@ -158,7 +154,7 @@ def _batched_msm_identity(
         for k, i in enumerate(over):
             ok[i] = ok_over[k]
         return ok
-    stage = _stage(timer)
+    stage = stages(timer)
     with stage("msm.pack_host"):
         real: list[Point] = []
         scs: list[int] = []
@@ -202,7 +198,7 @@ def _combined_msm_identity(
     Relation.drain, multimult.ts:147-174).  Only when the combined check
     fails do the per-row checks run, to say which rows failed.  Batches
     too small to fill four sub-rows take the per-row path directly."""
-    stage = _stage(timer)
+    stage = stages(timer)
     N = len(rows)
     if N == 0:
         return np.zeros(0, dtype=bool)
@@ -268,7 +264,7 @@ class BatchVerifier:
                 out.extend(self.verify(msg_hashes[lo:hi], keys, proofs[lo:hi], timer=timer))
             return out
 
-        stage = _stage(timer)
+        stage = stages(timer)
         params = self.params
         device = self.device
         N = len(proofs)

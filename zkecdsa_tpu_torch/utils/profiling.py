@@ -14,7 +14,7 @@ import time
 
 import torch
 
-__all__ = ["StageTimer"]
+__all__ = ["StageTimer", "stages"]
 
 
 class StageTimer:
@@ -55,3 +55,8 @@ class StageTimer:
 
     def as_json(self) -> str:
         return json.dumps(self.stages)
+
+
+def stages(timer: StageTimer | None):
+    """``timer.stage``, or a no-op stage when there is no timer."""
+    return timer.stage if timer is not None else (lambda _name: contextlib.nullcontext())
