@@ -21,14 +21,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    proof bytes; proofs 0..7 must equal, byte for byte, those of the host
    prover ``prove_signature_list`` run in worker processes meanwhile; the
    launch counts are read over the first timed rep;
+   phase 3 also holds the MSM backends' kernels (``bucket_sums``,
+   ``bucket_fold``, ``msm_ladder``) against their plain versions, and
+   ``straus_msm`` against them (the Straus-bucket crossover);
 4b. the verifier: ``BatchVerifier.verify`` on those 256 proofs, one
    warm-up and three timed reps, launch counts over the first; then one
    proof's GK response is tampered: exactly that position must fail (the
-   per-row attribution path), and the host scalar verifier must agree;
+   per-row attribution path);
+4c. path A: the same verify and tampered batch with
+   ``Config.pippenger_min_t = 32``: the per-row MSMs take the bucket
+   kernels (P-256 on the honest batch, both curves on the tampered one);
+   the host scalar verifier must agree on proofs 0..7 and the tampered one;
+4d. path B: the scalar verifier ``verify_signature_list`` under
+   ``device_msm_backend()`` on those 9 proofs, one at a time in this
+   process: the host verifier's verdicts, 3 ``straus_msm`` launches per
+   honest proof and 1 for the tampered one;
 5. print the ``kernels`` JSON line (per kernel: its first checked shape's
-   times, every shape's record under ``shapes``, and ``prove_ms``, the
-   kernel time of one prove summed over its shapes), then the last line
-   ``{"ok": true, "device": {...}}``.
+   times, every shape's record under ``shapes``, ``prove_ms``, the
+   kernel time of one prove summed over its shapes, and its launches per
+   path), then the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA (or without the package beside it) it exits non-zero and
 prints no result.
@@ -36,6 +47,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import multiprocessing
@@ -59,6 +71,16 @@ SMALL_MSM = (4, 1024)  # straus_msm [R, T] on both curves
 MSM = (16, 8192)  # the combined Tom-256 MSM's [R, T] at N=256, ring 2^12
 ROUNDS = 80  # exp rounds per proof (sec_level)
 CHORD_K = 10240  # phase-B rows: ~N*40 even rounds, a multiple of 512
+PIPPENGER_MIN_T = 32  # path A: sends both per-row MSMs of the batch to the bucket kernels
+# bucket kernels: (curve, R, T, window, rows of the plain bucket sums): the
+# per-row P-256 MSM (T = 43 rounded to 48), the Tom-256 attribution MSM
+# (756 -> 760) and the combined Tom-256 width
+BUCKET = (("p256", 256, 48, 5, 256), ("tomEdwards256", 256, 760, 5, 8),
+          ("tomEdwards256", 16, 8192, 6, 2))
+LADDER = (4, 1024)  # msm_ladder [R, T] on both curves
+# path B's one-row MSMs of one proof: GK membership (4n + 4), the exp
+# relations on Tom-256 (a few hundred) and on P-256 (3 + 2 per round)
+SCALAR_MSM = (("tomEdwards256", 52), ("tomEdwards256", 380), ("p256", 43))
 
 # Bounds (H100 SXM, NVIDIA data sheet, at the full 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -114,10 +136,11 @@ def _host_verify(job):
     )
 
     params = read_json(SystemParametersList, params_json)
+    proof = read_json(SignatureProofList, proof_json)
+    t0 = time.perf_counter()
     with rng.deterministic(seed):
-        return verify_signature_list(
-            params, mh, ring, read_json(SignatureProofList, proof_json)
-        )
+        ok = verify_signature_list(params, mh, ring, proof)
+    return ok, time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +652,160 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     return shapes
 
 
+def _affine_exact(name, ops, got, want) -> int:
+    """Compare two batches of points as group elements (the kernel adds in
+    another order than the plain version): canonical affine coordinates
+    and the infinity flag, tolerance 0."""
+    import torch
+
+    ga, wa = ops.to_affine(got), ops.to_affine(want)
+    return _exact(name, [(ga[0], wa[0]), (ga[1], wa[1]),
+                         (ga[2].to(torch.int32), wa[2].to(torch.int32))])
+
+
+def _msm_inputs(ops, g, R, T, rs, dev):
+    """R rows of T terms on the card: random points (distinct projective
+    coordinates), random scalars with 0, 1, order - 1 and a duplicate at
+    the head of each row, and an identity point with scalar 0 at its end
+    (the verifier's padding lanes)."""
+    G = g.generator()
+    host = [G.mul(g.new_scalar(int.from_bytes(rs.bytes(32), "little") % g.order)) for _ in range(64)]
+    P = _rescaled(ops, host, R * T, rs, dev).reshape(R, T, ops.NCOORD, -1)
+    P[:, -1] = ops.identity((), dev)
+    scs = [[int.from_bytes(rs.bytes(32), "little") % g.order for _ in range(T)] for _ in range(R)]
+    for row in scs:
+        row[:4] = [0, 1, g.order - 1, row[4]]
+        row[-1] = 0
+    return P, scs
+
+
+def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
+    """Phase 3, slice 3: ``bucket_sums`` and ``bucket_fold`` at the bucket
+    backend's shapes (each against its plain version, and the two
+    together against ``straus_msm`` on every row, the crossover),
+    ``msm_ladder`` against its plain version and ``straus_msm``, and
+    ``straus_msm`` at the scalar verifier's one-row shapes against the
+    plain ``msm``.  Returns ({name: [shape record, ...]}, crossover)."""
+    import numpy as np
+    import torch
+
+    from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
+    from zkecdsa_tpu_torch.ops.curve_ops import (
+        msm,
+        msm_chunk,
+        msm_ladder,
+        nibble_digits,
+        p256_ops,
+        scalar_bits,
+        straus_msm,
+        tom_ops,
+    )
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+    from zkecdsa_tpu_torch.ops.msm_bucket import (
+        bucket_fold,
+        bucket_fold_plain,
+        bucket_sums,
+        bucket_sums_plain,
+        msm_bucket_rows,
+        n_windows,
+        window_digits,
+    )
+
+    curves = {"p256": (p256_ops, p256, MM_WEIER_ADD, MM_WEIER_DBL),
+              "tomEdwards256": (tom_ops, tomEdwards256, MM_EDW_ADD, MM_EDW_DBL)}
+    pb = NLIMBS * 4
+    shapes: dict[str, list] = {}
+    crossover = []
+
+    def record(name, call, err, ms, plain_ms, bound, **extra):
+        b, by = bound
+        shapes.setdefault(name, []).append(dict(
+            call=call, launches_per_call=1, launches_per_prove=0, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, **extra))
+
+    def nibbles(scs, R, T):
+        flat = [s for row in scs for s in row]
+        return torch.from_numpy(nibble_digits(flat).astype(np.uint8).reshape(R, T, 64)).to(dev)
+
+    # -- the bucket kernels at path A's per-row shapes and the combined
+    #    width; the plain bucket sums run on the first `rows` rows --------
+    for name, R, T, w, rows in BUCKET:
+        ops, g, mm_add, mm_dbl = curves[name]
+        C, D, B = ops.NCOORD, n_windows(w), 1 << w
+        P, scs = _msm_inputs(ops, g, R, T, rs, dev)
+        dig = torch.from_numpy(window_digits(scs, T, w)).to(dev)
+        call = f"{name} [{R}, {T}] w={w}"
+        S = bucket_sums(ops, P, dig, w)
+        plain, plain_ms = _once_ms(lambda: bucket_sums_plain(ops, P[:rows], dig[:rows], w))
+        err = _affine_exact(f"bucket_sums {call}", ops, S[:rows], plain)
+        ms = _cuda_ms(lambda: bucket_sums(ops, P, dig, w), 5)
+        nnz = int((dig != 0).sum())
+        # the tail: the top window holds 256 - (D-1)*w real bits, so few
+        # buckets take many terms; time the call without it
+        top = int(torch.bincount(dig[0, 0].long(), minlength=B)[1:].max())
+        rest = dig.clone()
+        rest[:, 0] = 0
+        ms_rest = _cuda_ms(lambda: bucket_sums(ops, P, rest, w), 5)
+        record("bucket_sums", call, err, ms, plain_ms,
+               _bound(mm_add * nnz, R * T * C * pb + dig.numel() + R * D * B * C * pb),
+               plain_rows=rows, ms_top_window_zeroed=ms_rest)
+        log(f"bucket_sums {call}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms on [{rows}, {T}], exact "
+            f"(affine); {nnz} nonzero digits; {top} terms in row 0's largest top-window bucket; "
+            f"{ms_rest:.4f} ms with the top window's digits zeroed")
+        out = bucket_fold(ops, S, w)
+        plain, plain_ms = _once_ms(lambda: bucket_fold_plain(ops, S, w))
+        err = _affine_exact(f"bucket_fold {call}", ops, out, plain)
+        ms_fold = _cuda_ms(lambda: bucket_fold(ops, S, w), 5)
+        record("bucket_fold", call, err, ms_fold, plain_ms,
+               _bound(R * D * (2 * (B - 1) * mm_add + w * mm_dbl + mm_add), R * D * B * C * pb + R * C * pb))
+        log(f"bucket_fold {call}: kernel {ms_fold:.4f} ms, plain {plain_ms:.1f} ms, exact (affine)")
+        # the two kernels together against the Straus kernel, every row
+        nib = nibbles(scs, R, T)
+        _affine_exact(f"bucket vs straus_msm {call}", ops, out, straus_msm(ops, P, nib))
+        if R * T <= 256 * 48:  # the public entry on host scalars, at the smallest shape
+            _exact(f"msm_bucket_rows {call}", [(msm_bucket_rows(ops, P, scs, w), out)])
+        ms_straus = _cuda_ms(lambda: straus_msm(ops, P, nib), 3)
+        ms_bucket = _cuda_ms(lambda: bucket_fold(ops, bucket_sums(ops, P, dig, w), w), 3)
+        crossover.append(dict(call=call, straus_ms=ms_straus, bucket_ms=ms_bucket))
+        log(f"crossover {call}: straus_msm {ms_straus:.3f} ms, bucket_sums + bucket_fold "
+            f"{ms_bucket:.3f} ms -> {'bucket' if ms_bucket < ms_straus else 'straus'} faster")
+
+    # -- msm_ladder on both curves, held against its plain version (the
+    #    same order: exact) and against straus_msm (as group elements) ----
+    R, T = LADDER
+    for name, (ops, g, mm_add, mm_dbl) in curves.items():
+        P, scs = _msm_inputs(ops, g, R, T, rs, dev)
+        bits = torch.from_numpy(scalar_bits([s for row in scs for s in row]).reshape(R, T, 256)).to(dev)
+        call = f"{name} [{R}, {T}]"
+        got = msm_ladder(ops, P, bits)
+        plain, plain_ms = _once_ms(lambda: ops.msm_ladder(P, bits))
+        err = _exact(f"msm_ladder {call}", [(got, plain)])
+        _affine_exact(f"msm_ladder vs straus_msm {call}", ops, got, straus_msm(ops, P, nibbles(scs, R, T)))
+        ms = _cuda_ms(lambda: msm_ladder(ops, P, bits), 3)
+        record("msm_ladder", call + " (with its ec_add tree)", err, ms, plain_ms,
+               _bound(R * T * 256 * (mm_dbl + mm_add), R * T * (ops.NCOORD * pb + 256) + R * ops.NCOORD * pb))
+        log(f"msm_ladder {call}: kernel {ms:.3f} ms (with its ec_add tree), plain {plain_ms:.1f} ms, "
+            f"exact, = straus_msm")
+
+    # -- straus_msm at path B's one-row shapes (msm: one proof's MultiMult),
+    #    against the plain msm, the reference's per-term schedule ----------
+    for name, T in SCALAR_MSM:
+        ops, g, mm_add, mm_dbl = curves[name]
+        P, scs = _msm_inputs(ops, g, 1, T, rs, dev)
+        nib = nibbles(scs, 1, T)
+        call = f"{name} [1, {T}] (msm, path B)"
+        got = msm(ops, P[0], nib[0])
+        plain, plain_ms = _once_ms(lambda: ops.msm(P[0], nib[0]))
+        err = _affine_exact(f"straus_msm {call}", ops, got, plain)
+        ms = _cuda_ms(lambda: msm(ops, P[0], nib[0]), 10)
+        nch = -(-T // msm_chunk(1, T))
+        record("straus_msm", call, err, ms, plain_ms,
+               _bound(mm_add * (T * (14 + 64) + nch - 1) + mm_dbl * nch * 256,
+                      T * (ops.NCOORD * pb + 64) + ops.NCOORD * pb))
+        log(f"straus_msm {call}: {ms:.4f} ms with its ec_add tree, plain msm {plain_ms:.1f} ms, exact (affine)")
+    return shapes, crossover
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -662,16 +839,24 @@ def main() -> int:
         ec_add,
         mul_comb4,
         shamir,
+        msm_ladder,
         straus_msm,
         to_affine,
     )
     from zkecdsa_tpu_torch.ops.field import chord, field_mul
+    from zkecdsa_tpu_torch.ops.msm_bucket import bucket_fold, bucket_sums
     from zkecdsa_tpu_torch.protocol.batch import BatchProver, device_params_for
     from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
+    from zkecdsa_tpu_torch.protocol.verify import device_msm_backend
     from zkecdsa_tpu_torch.serde import read_json, write_json
     from zkecdsa_tpu_torch.utils import rng
+    from zkecdsa_tpu_torch.utils.config import get_config, set_config
     from zkecdsa_tpu_torch.utils.profiling import StageTimer
-    from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList, generate_params_list
+    from zkecdsa_tpu_torch.zkp_attest_list import (
+        SignatureProofList,
+        generate_params_list,
+        verify_signature_list,
+    )
 
     def log(msg: str) -> None:
         print(msg, flush=True)
@@ -711,6 +896,9 @@ def main() -> int:
         shapes = {k: [v] for k, v in check_kernels(dev, dparams, rs, log).items()}
         for k, recs in check_prover_kernels(dev, dparams, rs, log).items():
             shapes.setdefault(k, []).extend(recs)
+        msm_shapes, crossover = check_msm_kernels(dev, rs, log)
+        for k, recs in msm_shapes.items():
+            shapes.setdefault(k, []).extend(recs)
 
         host_jsons = proving.get(timeout=900)
         log(f"host proving: {K} proofs at ring {RING} in {time.perf_counter() - t0:.1f} s "
@@ -719,10 +907,22 @@ def main() -> int:
         counters = {fn.__name__: fn for fn in (
             field_mul, ec_add, to_affine, straus_msm, comb_mixed,
             shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
+            bucket_sums, bucket_fold, msm_ladder,
         )}
         prove_path = ("field_mul", "ec_add", "to_affine", "comb_mixed", "shamir",
                       "comb4_bases", "comb4_entries", "mul_comb4", "comb_weier", "chord")
         verify_path = ("field_mul", "ec_add", "to_affine", "straus_msm", "comb_mixed")
+        bucket_path = verify_path + ("bucket_sums", "bucket_fold")  # path A
+        scalar_path = ("straus_msm", "ec_add")  # path B: msm, then its ec_add tree
+
+        def zero_counts():
+            for fn in counters.values():
+                fn.launches = 0
+            for fn in (bucket_sums, bucket_fold):
+                fn.curves.clear()
+
+        def read_counts():
+            return {k: fn.launches for k, fn in counters.items()}
 
         def timed_reps(name, run, path, check):
             """One warm-up and REPS timed runs; the launch counts are set to
@@ -736,24 +936,24 @@ def main() -> int:
             walls, launches = [], {}
             for rep in range(REPS):
                 if rep == 0:
-                    for fn in counters.values():
-                        fn.launches = 0
+                    zero_counts()
                 t0 = time.perf_counter()
                 res = run(timer)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
                 if rep == 0:
-                    launches = {k: fn.launches for k, fn in counters.items()}
+                    launches = read_counts()
+                    curves = {fn.__name__: dict(fn.curves) for fn in (bucket_sums, bucket_fold)}
                 check(res)
             wall = statistics.median(walls)
             log(f"slice: {name} N={N} ring={RING}: median {wall:.3f} s of "
                 f"{[round(w, 3) for w in walls]} -> {N / wall:.2f} proofs/s on {smi}")
             log(f"{name} stages over the timed reps (seconds summed over reps):\n" + timer.report())
-            log(f"launches in one {name}: " + json.dumps(launches))
+            log(f"launches in one {name}: " + json.dumps(launches) + f", bucket kernels by curve {curves}")
             missing = [k for k in path if launches[k] <= 0]
             if missing:
                 raise AssertionError(f"kernels not launched on the {name} path: {missing}")
-            return out, wall, launches, timer
+            return out, wall, launches, timer, curves
 
         # -- phase 4a: the prover --------------------------------------------
         bp = BatchProver(params, dev)
@@ -774,7 +974,7 @@ def main() -> int:
             elif got != wire:
                 raise AssertionError("a timed prove gave other proof bytes than the warm-up")
 
-        proofs, prove_wall, launches_prove, ptimer = timed_reps(
+        proofs, prove_wall, launches_prove, ptimer, _ = timed_reps(
             "prove", prove, prove_path, check_proofs
         )
         log("proof bytes sha256: " + hashlib.sha256("".join(wire).encode()).hexdigest())
@@ -794,7 +994,7 @@ def main() -> int:
             if not all(ok):
                 raise AssertionError(f"verify rejected honest proofs: {ok.count(False)} False")
 
-        _, verify_wall, launches_verify, vtimer = timed_reps(
+        _, verify_wall, launches_verify, vtimer, _ = timed_reps(
             "verify", lambda timer: bv.verify(mhs, ring, proofs, timer=timer), verify_path,
             check_verdicts,
         )
@@ -821,17 +1021,83 @@ def main() -> int:
         if ttimer.counts.get("msm.pack_host") != 2:
             raise AssertionError(f"the attribution path did not run: {ttimer.counts}")
 
+        # -- phase 4c, path A: the verifier on the bucket backend -------------
+        cfg = get_config()
+        set_config(dataclasses.replace(cfg, pippenger_min_t=PIPPENGER_MIN_T))
+        try:
+            _, bucket_wall, launches_bucket, btimer, bcurves = timed_reps(
+                "verify (bucket backend)", lambda timer: bv.verify(mhs, ring, proofs, timer=timer),
+                bucket_path, check_verdicts,
+            )
+            # the honest batch's Tom-256 check stays on the combined Straus
+            # MSM; its per-row P-256 MSM takes the bucket kernels
+            if any(c.get("p256", 0) <= 0 for c in bcurves.values()):
+                raise AssertionError(f"the P-256 per-row MSM did not take the bucket kernels: {bcurves}")
+            zero_counts()
+            t0 = time.perf_counter()
+            verdict = bv.verify(mhs, ring, tampered)
+            torch.cuda.synchronize()
+            t_bad = time.perf_counter() - t0
+            tcounts = read_counts()
+            tcurves = {fn.__name__: dict(fn.curves) for fn in (bucket_sums, bucket_fold)}
+        finally:
+            set_config(cfg)
+        log(f"tampered batch on the bucket backend: {t_bad:.2f} s, False at "
+            f"{[i for i, v in enumerate(verdict) if not v]}; launches " + json.dumps(tcounts)
+            + f", bucket kernels by curve {tcurves}")
+        if verdict != [i != TAMPER_AT for i in range(N)]:
+            raise AssertionError("tampered batch on the bucket backend: wrong verdicts")
+        if any(c.get(g, 0) <= 0 for c in tcurves.values() for g in ("p256", "tomEdwards256")):
+            raise AssertionError(f"the attribution MSMs did not take the bucket kernels on both curves: {tcurves}")
+        log(f"verify: bucket backend {N / bucket_wall:.2f} proofs/s, Straus backend (phase 4b) "
+            f"{N / verify_wall:.2f} proofs/s, on {smi}")
+
         # the host scalar verifier agrees on batched proofs and the
-        # tampered one
+        # tampered one (each call timed in its worker)
         jobs = [(params_json, mhs[i], ring, wire[i], SEED + 200 + i) for i in range(K)]
         jobs.append((params_json, mhs[TAMPER_AT], ring,
                      write_json(SignatureProofList, bad), SEED + 300))
-        host = pool.map(_host_verify, jobs)
+        host_res = pool.map(_host_verify, jobs)
         pool.close()
         pool.join()
+    host = [ok for ok, _ in host_res]
+    host_s = [secs for _, secs in host_res]
     if host != [True] * K + [False]:
         raise AssertionError(f"host scalar verifier disagrees: {host}")
-    log(f"host scalar verify_signature_list agrees: {host}")
+    log(f"host scalar verify_signature_list agrees: {host}; seconds per proof "
+        f"{[round(x, 3) for x in host_s]}")
+
+    # -- phase 4d, path B: the scalar verifier on the device MSM backend, in
+    #    this process (the pool's workers never touch CUDA), one proof at a
+    #    time; the counts are zeroed before each proof and read after it -----
+    scalar_jobs = [(mhs[i], proofs[i], SEED + 200 + i) for i in range(K)]
+    scalar_jobs.append((mhs[TAMPER_AT], bad, SEED + 300))
+    dev_ok, dev_s, per_proof = [], [], []
+    launches_scalar = dict.fromkeys(counters, 0)
+    with device_msm_backend(dev):
+        for mh, proof, seed in scalar_jobs:
+            zero_counts()
+            t0 = time.perf_counter()
+            with rng.deterministic(seed):
+                dev_ok.append(verify_signature_list(params, mh, ring, proof))
+            torch.cuda.synchronize()
+            dev_s.append(time.perf_counter() - t0)
+            counts = read_counts()
+            per_proof.append(counts["straus_msm"])
+            for k, v in counts.items():
+                launches_scalar[k] += v
+    log(f"scalar verifier on the device MSM backend: {dev_ok}; straus_msm launches per proof "
+        f"{per_proof}; seconds per proof {[round(x, 3) for x in dev_s]}")
+    if dev_ok != host:
+        raise AssertionError(f"the device MSM backend disagrees with the host verifier: {dev_ok}")
+    if per_proof != [3] * K + [1]:
+        raise AssertionError(f"expected 3 MSMs per honest proof and 1 for the tampered one: {per_proof}")
+    missing = [k for k in scalar_path if launches_scalar[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the scalar verifier's path: {missing}")
+    dev_med, host_med = statistics.median(dev_s[:K]), statistics.median(host_s[:K])
+    log(f"slice: scalar verify_signature_list at ring {RING}: median {dev_med:.3f} s per honest proof "
+        f"on the device MSM backend, {host_med:.3f} s on the host, on {smi}")
 
     # -- phase 5: the kernels line and the result -----------------------------
     meta = {
@@ -846,6 +1112,9 @@ def main() -> int:
         "mul_comb4": ("zkecdsa_tpu_torch/csrc/comb4.cu", "zkecdsa_tpu/ops/curve_ops.py:218"),
         "comb_weier": ("zkecdsa_tpu_torch/csrc/comb.cu", "zkecdsa_tpu/ops/curve_ops.py:330"),
         "chord": ("zkecdsa_tpu_torch/csrc/chord.cu", "zkecdsa_tpu/ops/f32field.py:441"),
+        "bucket_sums": ("zkecdsa_tpu_torch/csrc/bucket.cu", "zkecdsa_tpu/ops/msm_bucket.py:123"),
+        "bucket_fold": ("zkecdsa_tpu_torch/csrc/bucket.cu", "zkecdsa_tpu/ops/msm_bucket.py:123"),
+        "msm_ladder": ("zkecdsa_tpu_torch/csrc/ladder.cu", "zkecdsa_tpu/ops/curve_ops.py:373"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -854,8 +1123,11 @@ def main() -> int:
         prove_ms = sum(r["ms"] * r["launches_per_prove"] / r["launches_per_call"] for r in recs)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches_prove[name] + launches_verify[name],
+            "launches": (launches_prove[name] + launches_verify[name]
+                         + launches_bucket[name] + launches_scalar[name]),
             "launches_prove": launches_prove[name], "launches_verify": launches_verify[name],
+            "launches_bucket_verify": launches_bucket[name],
+            "launches_scalar_verify": launches_scalar[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": None, "call": e["call"],
@@ -870,7 +1142,11 @@ def main() -> int:
         "prove_s": prove_wall, "prove_proofs_per_s": N / prove_wall,
         "verify_s": verify_wall, "verify_proofs_per_s": N / verify_wall,
         "prove_verify_proofs_per_s": N / both,
+        "bucket_verify_s": bucket_wall, "bucket_verify_proofs_per_s": N / bucket_wall,
+        "scalar_verify_s_per_proof": dev_med, "host_scalar_verify_s_per_proof": host_med,
+        "crossover": crossover,
         "prove_stages": ptimer.stages, "verify_stages": vtimer.stages,
+        "bucket_verify_stages": btimer.stages,
     }))
     print(json.dumps({
         "ok": True,

@@ -11,10 +11,14 @@ import pytest
 import torch
 
 from zkecdsa_tpu_torch import _build
+from zkecdsa_tpu_torch.curves import multimult as tmm
+from zkecdsa_tpu_torch.curves.instances import p256
 from zkecdsa_tpu_torch.ops import curve_ops as tcurve
 from zkecdsa_tpu_torch.ops import field as tf
+from zkecdsa_tpu_torch.ops import msm_bucket as tmb
 from zkecdsa_tpu_torch.protocol import batch as tbatch
 from zkecdsa_tpu_torch.protocol import batch_verify as tbv
+from zkecdsa_tpu_torch.protocol import verify as tverify
 from zkecdsa_tpu_torch.utils import rng as trng
 from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list
 
@@ -24,17 +28,23 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# A tiny verify (4 exp rounds, 2 checked, ring of 2) and a tiny batched
-# prove (one proof, ring of 2) in a fresh interpreter, then the list of
-# every loaded module that belongs to JAX or the JAX package.
+# A tiny verify (4 exp rounds, 2 checked, ring of 2) on the Straus and on
+# the bucket backend, the scalar verifier on the device MSM backend (20
+# rounds, the count it checks), and a tiny batched prove (one proof, ring
+# of 2) in a fresh interpreter, then the list of every loaded module that
+# belongs to JAX or the JAX package.
 _PROBE = r"""
-import hashlib, sys
+import dataclasses, hashlib, sys
 import chip_smoke  # noqa: F401  the chip script's own imports
 from zkecdsa_tpu_torch import ecdsa
 from zkecdsa_tpu_torch.protocol.batch import BatchProver
 from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
+from zkecdsa_tpu_torch.protocol.verify import device_msm_backend
 from zkecdsa_tpu_torch.utils import rng
-from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list, prove_signature_list
+from zkecdsa_tpu_torch.utils.config import get_config, set_config
+from zkecdsa_tpu_torch.zkp_attest_list import (
+    generate_params_list, prove_signature_list, verify_signature_list,
+)
 with rng.deterministic(3):
     params = generate_params_list(sec_level=4)
     kp = ecdsa.generate_keypair()
@@ -45,6 +55,16 @@ with rng.deterministic(3):
     proof = prove_signature_list(params, mh, sig, pub, 0, ring)
     ok = BatchVerifier(params, device="cpu").verify([mh], ring, [proof])
 assert ok == [True], ok
+set_config(dataclasses.replace(get_config(), pippenger_min_t=32))
+with rng.deterministic(3):
+    ok = BatchVerifier(params, device="cpu").verify([mh], ring, [proof])
+assert ok == [True], ok
+set_config(dataclasses.replace(get_config(), pippenger_min_t=0))
+with rng.deterministic(5):
+    params20 = generate_params_list(sec_level=20)
+    proof20 = prove_signature_list(params20, mh, sig, pub, 0, ring)
+    with device_msm_backend("cpu"):
+        assert verify_signature_list(params20, mh, ring, proof20)
 with rng.deterministic(4):
     params80 = generate_params_list()
 proofs = BatchProver(params80, device="cpu").prove(
@@ -82,6 +102,14 @@ def test_entry_point_defaults_to_cuda(monkeypatch):
         tbatch.BatchProver(params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tbatch.batched_prove_signature_list(params, [], [], [], [], [1, 2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tverify.batched_verify_signature_list(params, [], [1, 2], [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with tverify.device_msm_backend():
+            pass
+    assert tmm._MSM_BACKEND is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tverify.device_msm(p256, [p256.generator()], [1])
 
 
 def _meta(shape, dtype=torch.int32):
@@ -113,6 +141,16 @@ _CALLS = {
         _meta((32, 256, 3, 9)), _meta((2, 32), torch.uint8)
     ),
     "chord": lambda: tf.chord(_meta((4, 15, 9))),
+    "bucket_sums": lambda: tmb.bucket_sums(
+        tcurve.tom_ops, _meta((2, 8, 4, 9)), _meta((2, 52, 8), torch.uint8), 5
+    ),
+    "bucket_fold": lambda: tmb.bucket_fold(tcurve.tom_ops, _meta((2, 52, 32, 4, 9)), 5),
+    "msm_bucket_rows": lambda: tmb.msm_bucket_rows(tcurve.p256_ops, _meta((1, 3, 3, 9)), [[1, 2, 3]]),
+    "msm_ladder": lambda: tcurve.msm_ladder(
+        tcurve.p256_ops, _meta((2, 4, 3, 9)), _meta((2, 4, 256), torch.uint8)
+    ),
+    "msm": lambda: tcurve.msm(tcurve.tom_ops, _meta((4, 4, 9)), _meta((4, 64), torch.uint8)),
+    "device_msm": lambda: tverify.device_msm(p256, [p256.generator()], [5], device="meta"),
 }
 
 

@@ -226,3 +226,67 @@ def test_chord_kernel_vs_plain(cuda):
     assert torch.equal(got, tf.chord_plain(x))
     assert bool(f.is_zero(got[0, 1]))
     torch.cuda.synchronize()
+
+
+def _affine_equal(ops, a, b) -> bool:
+    """Two batches of points are the same group elements: the kernels and
+    the plain versions may add in other orders, so their projective
+    coordinates differ; the canonical affine ones may not."""
+    return all(torch.equal(x, y) for x, y in zip(ops.to_affine(a), ops.to_affine(b)))
+
+
+def _msm_rows(g, rs, N, T):
+    """N rows of T random points and scalars, with the edge scalars 0, 1,
+    order - 1, a duplicate, and an identity point with scalar 0 at the
+    end of each row."""
+    G = g.generator()
+    pts = [G.mul(g.new_scalar(_scalar(g, rs))) for _ in range(N * T)]
+    scs = [[_scalar(g, rs) for _ in range(T)] for _ in range(N)]
+    for i in range(N):
+        scs[i][:4] = [0, 1, g.order - 1, scs[i][4]]
+        pts[i * T + T - 1], scs[i][T - 1] = g.identity(), 0
+    return pts, scs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [5, 6])
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_bucket_kernels_vs_plain(ops, g, window, cuda):
+    from zkecdsa_tpu_torch.ops import msm_bucket as tmb
+
+    rs = np.random.RandomState(95 + window)
+    N, T = 3, 200
+    pts, scs = _msm_rows(g, rs, N, T)
+    scs[2] = [0] * T  # a row of padding: every bucket empty
+    P = ops.pack_points(pts, cuda).reshape(N, T, ops.NCOORD, -1)
+    dig = torch.from_numpy(tmb.window_digits(scs, T, window)).to(cuda)
+    S = tmb.bucket_sums(ops, P, dig, window)
+    assert _affine_equal(ops, S, tmb.bucket_sums_plain(ops, P, dig, window))
+    out = tmb.bucket_fold(ops, S, window)
+    assert _affine_equal(ops, out, tmb.bucket_fold_plain(ops, S, window))
+    assert torch.equal(tmb.msm_bucket_rows(ops, P, scs, window), out)
+    digits = torch.from_numpy(tcurve.nibble_digits([s for row in scs for s in row]).astype(np.uint8))
+    straus = tcurve.straus_msm(ops, P, digits.reshape(N, T, 64).to(cuda))
+    assert _affine_equal(ops, out, straus)
+    assert bool(ops.is_identity(out[2]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_msm_ladder_and_msm_vs_plain(ops, g, cuda):
+    rs = np.random.RandomState(97)
+    N, T = 2, 40
+    pts, scs = _msm_rows(g, rs, N, T)
+    P = ops.pack_points(pts, cuda).reshape(N, T, ops.NCOORD, -1)
+    flat = [s for row in scs for s in row]
+    bits = torch.from_numpy(tcurve.scalar_bits(flat).reshape(N, T, 256)).to(cuda)
+    got = tcurve.msm_ladder(ops, P, bits)
+    # one thread per term in the plain version's order, then its tree
+    assert torch.equal(got, ops.msm_ladder(P, bits))
+    digits = torch.from_numpy(tcurve.nibble_digits(flat).astype(np.uint8).reshape(N, T, 64)).to(cuda)
+    assert _affine_equal(ops, got, tcurve.straus_msm(ops, P, digits))
+    one = tcurve.msm(ops, P[0], digits[0])
+    assert _affine_equal(ops, one, ops.msm(P[0], digits[0]))
+    assert _affine_equal(ops, one, got[0])
+    torch.cuda.synchronize()

@@ -7,6 +7,7 @@ verifier's randomness (the 20-of-80 round sample, the combined check's
 r_i) from their own ``rng``; every test enters both.
 """
 
+import dataclasses
 import hashlib
 
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from zkecdsa_tpu.protocol.batch import _pk_scalars as jpk_scalars
 from zkecdsa_tpu.protocol.batch import device_params_for as jax_device_params_for
 from zkecdsa_tpu.serde import read_json as jread_json
 from zkecdsa_tpu.serde import write_json as jwrite_json
+from zkecdsa_tpu.utils import config as jconfig
 from zkecdsa_tpu.utils import rng as jrng
 from zkecdsa_tpu.zkp_attest_list import SignatureProofList as JProof
 from zkecdsa_tpu.zkp_attest_list import SystemParametersList as JParams
@@ -40,6 +42,7 @@ from zkecdsa_tpu_torch.ops.field import P256_P, TOM_P
 from zkecdsa_tpu_torch.protocol import batch_verify as tbv
 from zkecdsa_tpu_torch.protocol.batch import DeviceParams
 from zkecdsa_tpu_torch.serde import read_json, write_json
+from zkecdsa_tpu_torch.utils import config as tconfig
 from zkecdsa_tpu_torch.utils import rng as trng
 from zkecdsa_tpu_torch.utils.profiling import StageTimer
 from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList
@@ -199,3 +202,53 @@ def test_mixed_batch_combined_and_attribution(mixed, monkeypatch):
             # P-256, and for Tom-256 again when the combined check fails
             assert timer.counts.get("msm.combine_host") == 1, timer.counts
             assert timer.counts.get("msm.pack_host") == 1 + k, timer.counts
+
+
+@pytest.fixture
+def bucket_config():
+    """pippenger_min_t = 32 and 2 verify rounds in both packages for the
+    test, then restored.  With 2 sampled rounds the Tom-256 row of a proof
+    has at most 85 terms, so its MSM takes the bucket backend at T >= 32
+    (the P-256 row, 7 terms, stays on Straus); the bucket kernels' own
+    parity with the reference is in tests/test_torch_msm.py."""
+    t_old, j_old = tconfig.get_config(), jconfig.get_config()
+    tconfig.set_config(dataclasses.replace(t_old, pippenger_min_t=32, verify_rounds=2))
+    jconfig.set_config(dataclasses.replace(j_old, pippenger_min_t=32, verify_rounds=2))
+    try:
+        yield
+    finally:
+        tconfig.set_config(t_old)
+        jconfig.set_config(j_old)
+
+
+def test_batch_verifier_on_bucket_backend(gate, bucket_config, monkeypatch):
+    """On a batch of the honest proof and its tampered twin the bucket
+    backend gives the reference's verdicts under the same config (the
+    reference runs them one at a time) and those of the port's own Straus
+    path."""
+    params, mh, ring, proof = gate
+    tparams = carry.params_from_jax(jwrite_json(JParams, params))
+    seen = []
+    real = tbv.bucket_sums
+
+    def spy(ops, points, digits, window):
+        seen.append((ops.group.name, tuple(points.shape[:2])))
+        return real(ops, points, digits, window)
+
+    monkeypatch.setattr(tbv, "bucket_sums", spy)
+    bad = _to_port(proof)
+    bad.membershipProof.f[0] = bad.membershipProof.f[1]
+    batch = [_to_port(proof), bad]
+    port = tbv.BatchVerifier(tparams, device="cpu")
+    with trng.deterministic(60):
+        got = port.verify([mh, mh], ring, batch)
+    assert len(seen) == 1 and seen[0][0] == "tomEdwards256" and seen[0][1][1] >= 32, seen
+    jbad = jread_json(JProof, write_json(SignatureProofList, bad))
+    with jrng.deterministic(61):
+        ref = [jbv.BatchVerifier(params).verify([mh], ring, [p])[0] for p in (proof, jbad)]
+    seen.clear()
+    tconfig.set_config(dataclasses.replace(tconfig.get_config(), pippenger_min_t=0))
+    with trng.deterministic(62):
+        straus = port.verify([mh, mh], ring, batch)
+    assert seen == []
+    assert got == ref == straus == [True, False]

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "zk_comb4_entries": [_L, _P, _P, _P],
     "zk_mul_comb4": [_L, _L, _P, _P, _P, _P],
     "zk_chord": [_L, _P, _P, _P],
+    "zk_bucket_sums": [_I, _L, _L, _I, _I, _P, _P, _P, _P],
+    "zk_bucket_fold": [_I, _L, _I, _I, _I, _P, _P, _P],
+    "zk_msm_ladder": [_I, _L, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

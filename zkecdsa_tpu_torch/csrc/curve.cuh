@@ -258,6 +258,13 @@ __device__ __forceinline__ void pt_dbl(Pt<CID>& r, const Pt<CID>& P) {
     }
 }
 
+// r = c ? P : Q, without a branch
+template <int CID>
+__device__ __forceinline__ void pt_select(Pt<CID>& r, bool c, const Pt<CID>& P, const Pt<CID>& Q) {
+#pragma unroll
+    for (int k = 0; k < CurveT<CID>::C; ++k) fe_select(r.c[k], c, P.c[k], Q.c[k]);
+}
+
 // canonical standard-form coordinates in device memory <-> Montgomery
 template <int CID>
 __device__ __forceinline__ void pt_load(Pt<CID>& r, const uint32_t* g) {

@@ -13,14 +13,28 @@ uses *shared-window evaluation*: one 4-bit window pass over all scalars
 simultaneously, the algorithmic shape of the batched device MSM
 (:func:`zkecdsa_tpu_torch.ops.curve_ops.straus_msm`).  The batched
 verifier takes the accumulated pairs (:meth:`MultiMult.pairs`) to the
-device instead.
+device instead; and when a device backend is installed (see
+:func:`set_msm_backend`, :func:`zkecdsa_tpu_torch.protocol.verify.
+device_msm_backend`), ``evaluate`` sends an MSM of 8 or more terms to it.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 from .group import Group, Point, Scalar
 
-__all__ = ["MultiMult", "Relation"]
+__all__ = ["MultiMult", "Relation", "set_msm_backend"]
+
+# Optional device MSM: fn(group, points, scalar_ints) -> Point
+_MSM_BACKEND: Optional[Callable[[Group, list[Point], list[int]], Point]] = None
+
+
+def set_msm_backend(
+    fn: Optional[Callable[[Group, list[Point], list[int]], Point]],
+) -> None:
+    global _MSM_BACKEND
+    _MSM_BACKEND = fn
 
 
 class MultiMult:
@@ -84,6 +98,8 @@ class MultiMult:
     def evaluate(self) -> Point:
         if not self._points:
             return self.group.identity()
+        if _MSM_BACKEND is not None and len(self._points) >= 8:
+            return _MSM_BACKEND(self.group, self._points, [s.k for s in self._scalars])
         return self._evaluate_host()
 
     def _evaluate_host(self) -> Point:

@@ -14,10 +14,11 @@ Plain versions (``CurveOps`` methods) run on any device in plain PyTorch;
 inside a method the coordinates stay in the field's redundant working form
 and are canonicalised once at the end.  The kernel wrappers
 (:func:`ec_add`, :func:`to_affine`, :func:`straus_msm`,
-:func:`comb_mixed`, and the prover's P-256 kernels :func:`shamir`,
+:func:`comb_mixed`, the prover's P-256 kernels :func:`shamir`,
 :func:`comb4_bases`, :func:`comb4_entries`, :func:`mul_comb4`,
-:func:`comb_weier`) take the plain version for a CPU tensor and launch
-their kernel for any other, or raise.
+:func:`comb_weier`, and :func:`msm`, :func:`msm_ladder`) take the plain
+version for a CPU tensor and launch their kernel for any other, or raise.
+The bucket MSM's kernels are in ``ops/msm_bucket.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ __all__ = [
     "war_ops",
     "nibble_digits",
     "byte_digits",
+    "scalar_bits",
     "ec_add",
     "to_affine",
     "straus_msm",
@@ -49,6 +51,8 @@ __all__ = [
     "comb4_entries",
     "mul_comb4",
     "comb_weier",
+    "msm",
+    "msm_ladder",
 ]
 
 WINDOW = 4
@@ -66,6 +70,13 @@ def nibble_digits(scalars, width: int = NDIGITS_256) -> np.ndarray:
     out[:, 0::2] = by >> 4
     out[:, 1::2] = by & 0xF
     return out
+
+
+def scalar_bits(scalars, width: int = 256) -> np.ndarray:
+    """Bits, most significant first: [N, width] uint8 (for msm_ladder)."""
+    buf = b"".join(int(s).to_bytes(width // 8, "big") for s in scalars)
+    by = np.frombuffer(buf, dtype=np.uint8).reshape(len(scalars), width // 8)
+    return np.unpackbits(by, axis=1)
 
 
 def byte_digits(scalars, width: int = 32) -> np.ndarray:
@@ -251,6 +262,37 @@ class CurveOps:
             h = Pw.shape[0] // 2
             Pw = torch.cat([self._wadd(Pw[:h], Pw[h : 2 * h]), Pw[2 * h :]], dim=0)
         return Pw[0]
+
+    def msm(self, points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+        """sum_t s_t * P_t, the reference's ``msm`` schedule: points [..., T,
+        C, 9], MSB-first nibbles [..., T, 64] -> [..., C, 9].  Each term is
+        multiplied on its own window table (per digit column four
+        doublings and one table add), then the T products are tree-summed."""
+        if points.shape[-3] == 0:
+            return self.identity(points.shape[:-3], points.device).contiguous()
+        tabs = self._wtable(self._work(points))  # [..., T, 16, C, W]
+        d = digits.to(torch.int64)
+        acc = self._work(self.identity(d.shape[:-1], points.device))
+        for col in range(d.shape[-1]):
+            for _ in range(4):
+                acc = self._wdbl(acc)
+            acc = self._wadd(acc, self._gather_w(tabs, d[..., col]))
+        return self._canon(self._wsum(acc, axis=-3))
+
+    def msm_ladder(self, points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+        """sum_t s_t * P_t without window tables, the reference's
+        ``msm_ladder``: per term 256 MSB-first steps of a doubling, a
+        complete add and a select on the bit, then a tree sum over the
+        terms.  points [..., T, C, 9], bits [..., T, 256] -> [..., C, 9]."""
+        if points.shape[-3] == 0:
+            return self.identity(points.shape[:-3], points.device).contiguous()
+        Pw = self._work(points)
+        acc = self._work(self.identity(points.shape[:-2], points.device))
+        b = bits.to(torch.bool)
+        for k in range(b.shape[-1]):
+            acc = self._wdbl(acc)
+            acc = torch.where(b[..., k, None, None], self._wadd(acc, Pw), acc)
+        return self._canon(self._wsum(acc, axis=-3))
 
     def msm_shared(self, points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
         """Straus MSM, the reference's schedule: sum_t s_t * P_t with
@@ -595,6 +637,53 @@ def straus_msm(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor) -> tor
 
 
 straus_msm.launches = 0
+
+
+def msm(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """sum_t s_t * P_t over one set of terms: points [T, C, 9] canonical,
+    MSB-first nibbles [T, 64] (uint8) -> [C, 9].  Replaces
+    ``zkecdsa_tpu/ops/curve_ops.py:289 msm`` (per-term window multiplies,
+    then a tree sum): the same function as a Straus MSM of one row, so a
+    CUDA tensor goes to :func:`straus_msm` on [1, T] (no kernel of its
+    own).  A CPU tensor takes ``ops.msm``, the reference's schedule."""
+    if points.device.type == "cpu":
+        return ops.msm(points, digits)
+    return straus_msm(ops, points[None], digits[None])[0]
+
+
+def msm_ladder(ops: CurveOps, points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Per row, sum_t s_t * P_t by a double-and-add ladder per term: points
+    [..., T, C, 9] canonical, MSB-first bits [..., T, 256] (uint8) ->
+    [..., C, 9].
+
+    Kernel ``csrc/ladder.cu`` (replaces ``zkecdsa_tpu/ops/curve_ops.py:373
+    msm_ladder``): one thread per term runs the 256 steps in the plain
+    version's order; the terms of a row are then tree-summed with
+    :func:`sum_reduce`, the plain version's tree, so the projective
+    coordinates are the plain version's.  A CPU tensor takes
+    ``ops.msm_ladder``."""
+    if points.device.type == "cpu":
+        return ops.msm_ladder(points, bits)
+    lib = _build.load()
+    _check_points(ops, points)
+    if tuple(bits.shape) != tuple(points.shape[:-2]) + (256,) or bits.dtype != torch.uint8:
+        raise ValueError(
+            f"expected uint8 bits {tuple(points.shape[:-2]) + (256,)}, got {bits.dtype} {tuple(bits.shape)}"
+        )
+    if bits.device != points.device:
+        raise ValueError("points and bits on different devices")
+    points, bits = points.contiguous(), bits.contiguous()
+    terms = torch.empty_like(points)
+    code = lib.zk_msm_ladder(
+        ops.curve_id, bits.shape[:-1].numel(), points.data_ptr(), bits.data_ptr(),
+        terms.data_ptr(), _stream(points),
+    )
+    _build.check(code, "zk_msm_ladder")
+    msm_ladder.launches += 1
+    return sum_reduce(ops, terms, axis=-3)
+
+
+msm_ladder.launches = 0
 
 
 def comb_mixed(tabs: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ from ..ops.curve_ops import (
     war_ops,
 )
 from ..ops.field import TOM_N, bytes_le
+from ..ops.msm_bucket import bucket_bytes, bucket_fold, bucket_sums, pick_window, window_digits
 from ..proofGK.gk import _pad, gk_statement_bind
 from ..runtime import native
 from ..utils.config import get_config
@@ -111,9 +112,10 @@ def vphase(tabs, R, z1d, md, bits, rb8):
     }
 
 
-# Window-table scratch for one straus_msm dispatch (R*T*16 points).  The
-# H100 has 80 GB; 8 GiB leaves most of it to the rest of the process
-# (the v5e reference budgeted 2 GiB of its 16 GiB).
+# Scratch for one MSM dispatch: the Straus window tables (R*T*16 points)
+# or the bucket sums (R*D*2^w points).  The H100 has 80 GB; 8 GiB leaves
+# most of it to the rest of the process (the v5e reference budgeted 2 GiB
+# of its 16 GiB).
 MSM_TABLE_BYTES = 8 << 30
 
 
@@ -122,6 +124,17 @@ def _msm_rows(ops, arr: torch.Tensor, digits: torch.Tensor) -> list[torch.Tensor
     R, T = arr.shape[0], arr.shape[1]
     step = max(1, min(R, MSM_TABLE_BYTES // max(1, straus_table_bytes(ops, 1, T))))
     return [straus_msm(ops, arr[i : i + step], digits[i : i + step]) for i in range(0, R, step)]
+
+
+def _bucket_rows(ops, arr: torch.Tensor, digits: torch.Tensor, window: int) -> list[torch.Tensor]:
+    """The bucket kernels over row blocks that keep the bucket sums in
+    budget."""
+    R = arr.shape[0]
+    step = max(1, min(R, MSM_TABLE_BYTES // bucket_bytes(ops, 1, window)))
+    return [
+        bucket_fold(ops, bucket_sums(ops, arr[i : i + step], digits[i : i + step], window), window)
+        for i in range(0, R, step)
+    ]
 
 
 def _batched_msm_identity(
@@ -136,7 +149,11 @@ def _batched_msm_identity(
     bound ``t_static`` (see :meth:`BatchVerifier._t_static`) when the
     batch comes near it, else a power of two; rows beyond the bound (only
     past the ~P99.99 challenge tail) are checked in a dispatch of their
-    own."""
+    own.
+
+    Backend: the Straus kernel, or the bucket (Pippenger) kernels when T
+    reaches ``Config.pippenger_min_t`` (0, the default, never): they keep
+    no [T, 16] window table, only the [D, 2^w] bucket sums of a row."""
     ops = _OPS[group.name]
     N = len(rows)
     if N == 0:
@@ -170,11 +187,17 @@ def _batched_msm_identity(
             arr[pos] = ops.pack_points(real)
     with stage("msm.upload"):
         arr = arr.reshape(N, T, ops.NCOORD, -1).to(device)
+    min_t = get_config().pippenger_min_t
+    window = pick_window(T) if min_t and T >= min_t else None
     with stage("msm.digits"):
-        digits = _u8(nibble_digits(scs).reshape(N, T, 64), device)
+        if window is None:
+            digits = _u8(nibble_digits(scs).reshape(N, T, 64), device)
+        else:
+            srows = [scs[i * T : (i + 1) * T] for i in range(N)]
+            digits = torch.from_numpy(window_digits(srows, T, window)).to(device)
     with stage("msm.device"):
-        out = [ops.is_identity(s) for s in _msm_rows(ops, arr, digits)]
-        return torch.cat(out).cpu().numpy()
+        sums = _msm_rows(ops, arr, digits) if window is None else _bucket_rows(ops, arr, digits, window)
+        return torch.cat([ops.is_identity(s) for s in sums]).cpu().numpy()
 
 
 _COMB_W = 8192  # combined-MSM sub-row width (see _combined_msm_identity)

@@ -8,6 +8,10 @@ Every field here is read by the code:
 * ``verify_rounds`` - the top-level verifier's spot-check count
   (zkpAttestList.ts:177 hardcodes 20; read by both the scalar verifier and
   ``protocol.batch_verify``).
+* ``pippenger_min_t`` - term-count threshold from which the batch
+  verifier's per-row identity MSMs take the bucket (Pippenger) kernels
+  instead of the Straus kernel (``protocol.batch_verify``); 0 disables the
+  bucket path.
 * ``hardened_pedersen`` / ``hardened_gk`` - opt-in hardened security
   modes, read by ``commit.pedersen`` and the GK prove/verify paths
   respectively; see the dataclass comments.
@@ -28,6 +32,7 @@ __all__ = ["Config", "get_config", "set_config"]
 class Config:
     sec_level: int = 80  # prover rounds (zkpAttestList.ts:88)
     verify_rounds: int = 20  # top-level verifier spot-checks (":177")
+    pippenger_min_t: int = 0  # MSM bucket-kernel threshold (0 = never)
     # Hardened security modes (both default OFF for wire compatibility
     # with the reference's flagged-insecure choices):
     # * hardened_pedersen - derive the Pedersen base h by deterministic
