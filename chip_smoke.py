@@ -12,9 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from ``zkecdsa_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card, on the
    same inputs and exactly (integers: tolerance 0), at every shape the
-   prover gives it and at the verifier's, and time both with CUDA events;
-   the launches per prove at the checked shapes must add up to the counts
-   of phase 4a;
+   prover gives it and at the verifier's, and time both with CUDA events
+   (``straus_msm`` at every shape of one verify and of path B, each with
+   its schedule-independent bound and its launches per path; ``shamir``'s
+   two calls apart); the launches per prove at the checked shapes must add
+   up to the counts of phase 4a, and ``straus_msm``'s per verify to those
+   of phase 4b;
 4a. the prover: ``BatchProver.prove`` on N=256 distinct instances at ring
    2^12 (instance i proves key i of the ring on tape SEED+100+i), one
    warm-up and three timed reps on the same tapes, each giving the same
@@ -67,7 +70,7 @@ DEVICE = "cuda"
 S = 20  # verify rounds (Config.verify_rounds)
 FIELD_B = 65536  # field_mul rows per modulus
 EC_B = 16384  # ec_add point pairs per curve
-SMALL_MSM = (4, 1024)  # straus_msm [R, T] on both curves
+ROW_MSM = (256, 48)  # the verifier's per-row P-256 MSM [R, T] (43 terms padded to 48)
 MSM = (16, 8192)  # the combined Tom-256 MSM's [R, T] at N=256, ring 2^12
 ROUNDS = 80  # exp rounds per proof (sec_level)
 CHORD_K = 10240  # phase-B rows: ~N*40 even rounds, a multiple of 512
@@ -102,6 +105,23 @@ def _bound(modmuls: float, nbytes: float) -> tuple[float, str]:
     t_ops = modmuls * IMAD_PER_MODMUL / IMAD_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _straus_bound(ops, pts, dig) -> tuple[float, str]:
+    """Bound of ``straus_msm`` on points [R, T, C, 9] and digits [R, T, 64],
+    whatever its schedule: the least work of the algorithm on these inputs.
+    A live term (not the identity, not every digit zero) costs its table
+    (14 adds) and 64 adds, a row with a live term 256 doublings; the points
+    and digits are read once and R sums written."""
+    from zkecdsa_tpu_torch.ops.curve_ops import p256_ops
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+
+    mm_add, mm_dbl = (MM_WEIER_ADD, MM_WEIER_DBL) if ops is p256_ops else (MM_EDW_ADD, MM_EDW_DBL)
+    live = ~ops.is_identity(pts) & (dig != 0).any(-1)  # [R, T]
+    terms, rows = int(live.sum()), int(live.any(-1).sum())
+    R, T = live.shape
+    pb = NLIMBS * 4 * ops.NCOORD  # bytes per point
+    return _bound(mm_dbl * rows * 256 + mm_add * terms * (14 + 64), R * T * (pb + 64) + R * pb)
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +241,8 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         ec_add,
         p256_ops,
         straus_msm,
+        straus_plan,
+        straus_teams,
         to_affine,
         tom_ops,
     )
@@ -347,44 +369,42 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
     )
 
-    # -- straus_msm: SMALL_MSM on both curves, then the combined Tom-256
-    #    MSM's shape ------------------------------------------------------
-    def msm_case(ops, name, R, T, src):
-        pts = src[: R * T].reshape(R, T, ops.NCOORD, -1)
+    # -- straus_msm at the verifier's three shapes: vphase's window muls
+    #    [N*(S+1), 1] (Q = z1*G and T = m*R as one-term rows), the per-row
+    #    P-256 MSM [N, 48] (43 terms padded with identity lanes) and the
+    #    combined Tom-256 MSM -----------------------------------------------
+    recs = []
+    for ops, name, (R, T) in ((p256_ops, "p256", (N * (S + 1), 1)), (p256_ops, "p256", ROW_MSM),
+                              (tom_ops, "tomEdwards256", MSM)):
+        P = samples[name][0]
+        src = torch.cat([P] * -(-R * T // P.shape[0]))[: R * T]
+        pts = src.reshape(R, T, ops.NCOORD, -1).clone()
         dig = torch.from_numpy(rs.randint(0, 16, size=(R, T, 64)).astype(np.uint8)).to(dev)
-        dig[:, :3] = 0  # zero scalars: identity terms, as the padding lanes
+        if T > 1:
+            dig[:, :3] = 0  # zero scalars
+            # the padding lanes: identity points with zero scalars
+            pts[:, -5:] = ops.identity((), dev)
+            dig[:, -5:] = 0
+        else:
+            dig[:3] = 0  # zero-scalar rows among the one-term rows
         got = straus_msm(ops, pts, dig)
         plain, plain_ms = _once_ms(lambda: ops.msm_shared(pts, dig))
         # the kernel adds in another order: compare the affine points
         ga, pa = ops.to_affine(got), ops.to_affine(plain)
-        err = _exact(f"straus_msm[{name} {R}x{T}]", [(ga[0], pa[0]), (ga[1], pa[1]),
-                                                     (ga[2].to(torch.int32), pa[2].to(torch.int32))])
-        return pts, dig, err, plain_ms
-
-    big_src = {}
-    for ops, name in ((p256_ops, "p256"), (tom_ops, "tomEdwards256")):
-        P = samples[name][0]
-        src = torch.cat([P] * -(-MSM[0] * MSM[1] // P.shape[0]))
-        big_src[name] = src
-        _, _, _, plain_ms = msm_case(ops, name, *SMALL_MSM, src)
-        log(f"straus_msm {name} {list(SMALL_MSM)}: plain {plain_ms:.1f} ms, exact")
-    R, T = MSM
-    pts, dig, err, plain_ms = msm_case(tom_ops, "tomEdwards256", R, T, big_src["tomEdwards256"])
-    ms = _cuda_ms(lambda: straus_msm(tom_ops, pts, dig), 3)
-    from zkecdsa_tpu_torch.ops.curve_ops import msm_chunk
-
-    nch = -(-T // msm_chunk(R, T))
-    adds = R * T * (14 + 64) + R * (nch - 1)
-    dbls = R * nch * 256
-    bound, by = _bound(
-        MM_EDW_ADD * adds + MM_EDW_DBL * dbls, R * T * (C_T * pb + 64) + R * C_T * pb
-    )
-    entries["straus_msm"] = dict(
-        call=f"Tom-256 [{R}, {T}] (combined identity MSM)", launches_per_call=1,
-        launches_per_prove=0,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-    )
-    log(f"straus_msm tomEdwards256 [{R}, {T}]: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, exact")
+        call = f"{name} [{R}, {T}]"
+        err = _exact(f"straus_msm {call}", [(ga[0], pa[0]), (ga[1], pa[1]),
+                                            (ga[2].to(torch.int32), pa[2].to(torch.int32))])
+        ms = _cuda_ms(lambda: straus_msm(ops, pts, dig), 3)
+        bound, by = _straus_bound(ops, pts, dig)
+        teams = straus_teams(ops, dev)
+        plan = dict(dataclasses.asdict(straus_plan(R, T, teams)), resident_teams=teams)
+        recs.append(dict(
+            call=call + " (verify)", launches_per_call=1, launches_per_prove=0, launches_per_verify=1,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, plan=plan,
+        ))
+        log(f"straus_msm {call}: kernel {ms:.4f} ms (plan {plan}), "
+            f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms, exact (affine)")
+    entries["straus_msm"] = recs
 
     # -- comb_mixed: the vphase commits, [N, S, 2] rows -------------------
     tabs = torch.cat([dparams["g_t8"], dparams["h_t8"]], dim=0)
@@ -511,25 +531,28 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     case("ec_add", f"P-256 [{N}] (window tables, D)", lambda: ec_add(ops, t7, P),
          lambda: ops.add(t7, P), _add_bound(ops, N), 20, 32)
 
-    # -- shamir: the [N] call (shared G table, per-row tables) and the
-    #    [N, 2] call (per-row tables, one shared h table, zero digits) -----
-    tG, th = dparams["G"], dparams["h_n"]
+    # -- shamir: the [N] call (shared G table, per-row tables: R = u1*G +
+    #    u2*PK) and the [N, 2] call (per-row tables and the shared G table
+    #    against the shared G table with zero digits: s1*R and Q = z1*G) ---
+    tG = dparams["G"]
     d1, d2 = u8(N, 64, hi=16), u8(N, 64, hi=16)
     d1[0] = 0
     tp = torch.stack([tab, tG.expand_as(tab)], dim=1)
-    dP, dQ = u8(N, 2, 64, hi=16), u8(N, 2, 64, hi=16)
-    dQ[:, 1] = 0
-
-    def run_shamir(fn):
-        return fn(tG, d1, tab, d2), fn(tp, dP, th, dQ)
-
-    rows = 3 * N
-    R, cq = case(
-        "shamir", f"P-256 [{N}] + [{N}, 2] rows (phase A: R, then comS1 and Q)",
-        lambda: run_shamir(shamir), lambda: run_shamir(ops.double_mul_tables),
-        _bound(rows * 64 * (4 * MM_WEIER_DBL + 2 * MM_WEIER_ADD),
-               3 * N * 16 * pt_b + 2 * 16 * pt_b + 2 * rows * 64 + rows * pt_b),
-        5, 2, 2,
+    dP = u8(N, 2, 64, hi=16)
+    dQ = torch.zeros_like(dP)
+    # a column is 4 doublings and one add per table whose digits are used:
+    # both in the [N] call; only tp's in the [N, 2] call, whose dQ is zero
+    R = case(
+        "shamir", f"P-256 [{N}] (phase A: R = u1*G + u2*PK)",
+        lambda: shamir(tG, d1, tab, d2), lambda: ops.double_mul_tables(tG, d1, tab, d2),
+        _bound(N * 64 * (4 * MM_WEIER_DBL + 2 * MM_WEIER_ADD),
+               N * 16 * pt_b + 16 * pt_b + 2 * N * 64 + N * pt_b), 5, 1,
+    )
+    cq = case(
+        "shamir", f"P-256 [{N}, 2] (phase A: s1*R and Q = z1*G, zero second digits)",
+        lambda: shamir(tp, dP, tG, dQ), lambda: ops.double_mul_tables(tp, dP, tG, dQ),
+        _bound(2 * N * 64 * (4 * MM_WEIER_DBL + MM_WEIER_ADD),
+               N * 16 * pt_b + 16 * pt_b + 2 * N * 64 + 2 * N * pt_b), 5, 1,
     )
 
     # -- comb4: position bases, entries, then N x 80 scalars ---------------
@@ -692,12 +715,13 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
     from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
     from zkecdsa_tpu_torch.ops.curve_ops import (
         msm,
-        msm_chunk,
         msm_ladder,
         nibble_digits,
         p256_ops,
         scalar_bits,
         straus_msm,
+        straus_plan,
+        straus_teams,
         tom_ops,
     )
     from zkecdsa_tpu_torch.ops.field import NLIMBS
@@ -798,10 +822,9 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
         plain, plain_ms = _once_ms(lambda: ops.msm(P[0], nib[0]))
         err = _affine_exact(f"straus_msm {call}", ops, got, plain)
         ms = _cuda_ms(lambda: msm(ops, P[0], nib[0]), 10)
-        nch = -(-T // msm_chunk(1, T))
-        record("straus_msm", call, err, ms, plain_ms,
-               _bound(mm_add * (T * (14 + 64) + nch - 1) + mm_dbl * nch * 256,
-                      T * (ops.NCOORD * pb + 64) + ops.NCOORD * pb))
+        record("straus_msm", call, err, ms, plain_ms, _straus_bound(ops, P, nib),
+               launches_per_scalar_proof=1,
+               plan=dataclasses.asdict(straus_plan(1, T, straus_teams(ops, dev))))
         log(f"straus_msm {call}: {ms:.4f} ms with its ec_add tree, plain msm {plain_ms:.1f} ms, exact (affine)")
     return shapes, crossover
 
@@ -893,7 +916,8 @@ def main() -> int:
         # -- phase 3: kernels against their plain versions -----------------
         dparams = device_params_for(params, dev).tabs()
         rs = np.random.RandomState(SEED)
-        shapes = {k: [v] for k, v in check_kernels(dev, dparams, rs, log).items()}
+        shapes = {k: v if isinstance(v, list) else [v]
+                  for k, v in check_kernels(dev, dparams, rs, log).items()}
         for k, recs in check_prover_kernels(dev, dparams, rs, log).items():
             shapes.setdefault(k, []).extend(recs)
         msm_shapes, crossover = check_msm_kernels(dev, rs, log)
@@ -998,6 +1022,14 @@ def main() -> int:
             "verify", lambda timer: bv.verify(mhs, ring, proofs, timer=timer), verify_path,
             check_verdicts,
         )
+        # phase 3 timed straus_msm at every shape of the verify path: its
+        # launches per verify add up to the count of the run
+        at_shapes = sum(r.get("launches_per_verify", 0) for r in shapes["straus_msm"])
+        if at_shapes != launches_verify["straus_msm"]:
+            raise AssertionError(
+                f"straus_msm: {launches_verify['straus_msm']} launches in one verify, "
+                f"{at_shapes} at the checked shapes"
+            )
         if vtimer.counts.get("msm.combine_host") != REPS or vtimer.counts.get("msm.pack_host") != REPS:
             raise AssertionError(
                 f"expected the combined Tom-256 MSM and the per-row P-256 MSM once a rep: {vtimer.counts}"

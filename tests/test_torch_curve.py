@@ -211,7 +211,7 @@ def test_shamir_vs_double_mul_tables(params):
     order, so the projective coordinates are the same integers.  Shapes of
     phase A: one shared table against per-row tables, then [N, 2] rows
     with a zero-digit row."""
-    _, _, jtabs, ttabs = params
+    _, tparams, jtabs, ttabs = params
     tops, jops = tcurve.p256_ops, jcurve.p256_ops
     rs = np.random.RandomState(61)
     P = _points(p256, rs, 2)
@@ -230,7 +230,9 @@ def test_shamir_vs_double_mul_tables(params):
     tp = torch.stack([tab, ttabs["G"].expand_as(tab)], dim=1)
     dP = torch.stack([_nib(a), _nib(c)], dim=1)
     dQ = torch.stack([_nib(b), torch.zeros_like(_nib(b))], dim=1)
-    got2 = tcurve.shamir(tp, dP, ttabs["h_n"], dQ)
+    # a second shared table: the window table of h, the reference's "h_n"
+    tab_h = tops.table(tops.pack_points([tparams.nist_group.h]))[0]
+    got2 = tcurve.shamir(tp, dP, tab_h, dQ)
     jtp = jnp.stack([jtab, jnp.broadcast_to(jtabs["G"], jtab.shape)], axis=1)
     ref2 = jops.double_mul_tables(jtp, jnp.asarray(dP.numpy()), jtabs["h_n"], jnp.asarray(dQ.numpy()))
     assert _tcoords(tops, got2.reshape(-1, 3, 9)) == _coords(jops, ref2.reshape(-1, 3, ref2.shape[-1]))

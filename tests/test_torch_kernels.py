@@ -97,7 +97,45 @@ def test_straus_msm_edge_rows(ops, g):
     assert bool(ops.is_identity(out[1]))
     empty = tcurve.straus_msm(ops, pts[:, :0], dig[:, :0])
     assert ops.is_identity(empty).all()
-    assert 8 <= tcurve.msm_chunk(16, 8192) <= 32 and 8 <= tcurve.msm_chunk(1, 1) <= 32
+
+
+# the verifier's straus_msm shapes: vphase's window muls, the per-row P-256
+# MSM, the combined Tom-256 MSM, path B's one-row MSMs; then small ones
+PLAN_SHAPES = [
+    (tcurve.p256_ops, 5376, 1), (tcurve.p256_ops, 256, 48), (tcurve.tom_ops, 16, 8192),
+    (tcurve.p256_ops, 1, 43), (tcurve.tom_ops, 1, 52), (tcurve.tom_ops, 1, 380),
+    (tcurve.p256_ops, 3, 5), (tcurve.tom_ops, 40000, 3),
+]
+
+
+# one-warp blocks of the kernel an SM holds, by coordinates per point (the
+# occupancy of ptxas' sm_90a registers: 163 for P-256, 124 for Tom-256)
+RESIDENT_WARPS = {3: 12, 4: 16}
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+@pytest.mark.parametrize("ops,R,T", PLAN_SHAPES, ids=lambda v: getattr(v, "curve_id", v))
+def test_straus_plan(ops, R, T, sms):
+    """The launch geometry covers every term exactly once, with at least
+    one term a team; its teams fill the card (a few warps an SM) where R*T
+    allows and fit the resident warps once; a row of up to 64 chunks folds
+    in one block."""
+    resident = sms * RESIDENT_WARPS[ops.NCOORD] * 8
+    plan = tcurve.straus_plan(R, T, resident)
+    assert plan.chunk >= 1
+    assert (plan.nchunks - 1) * plan.chunk < T <= plan.nchunks * plan.chunk
+    covered = np.zeros(T, dtype=np.int64)
+    for c in range(plan.nchunks):
+        covered[c * plan.chunk : min(T, (c + 1) * plan.chunk)] += 1
+    assert (covered == 1).all()
+    assert (plan.nparts - 1) * plan.group < plan.nchunks <= plan.nparts * plan.group
+    assert plan.nparts == 1 or plan.group == 64
+    assert plan.rows_per_block * plan.group <= 64
+    assert plan.rows_per_block == 1 or plan.rows_per_block * plan.group * 4 <= 32  # parts share a warp
+    teams = R * plan.nchunks
+    assert teams >= min(R * T, resident // 2)  # a few warps an SM where R*T allows
+    # one wave of resident warps, or one team a row where the rows alone exceed it
+    assert plan.chunk == 1 or teams <= max(R, resident)
 
 
 @pytest.mark.cuda
@@ -179,9 +217,84 @@ def test_shamir_kernel_vs_plain(prover_tables, cuda):
     dQ = torch.from_numpy(rs.randint(0, 16, size=(40, 2, 64)).astype(np.uint8)).to(cuda)
     dQ[:, 1] = 0
     tp = torch.stack([tab, tabs["G"].to(cuda).expand_as(tab)], dim=1)
-    hn = tabs["h_n"].to(cuda)
+    # a second shared table, of another base than G
+    hn = ops.table(ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs)))], cuda))[0]
     got = tcurve.shamir(tp, dP, hn, dQ)
     assert torch.equal(got, ops.double_mul_tables(tp, dP, hn, dQ))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_shamir_kernel_ragged_rows(prover_tables, cuda):
+    """13 rows (not a multiple of the 8 teams of a block): a shared table
+    against per-row ones, then the [N, 2] broadcast of phase A with a
+    shared table and zero digits on the other side, bit for bit."""
+    tabs = prover_tables
+    rs = np.random.RandomState(90)
+    ops, g = tcurve.p256_ops, p256
+    n = 13
+    pts = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(n)], cuda)
+    tab = ops.table(pts)
+    G = tabs["G"].to(cuda)
+    d1 = torch.from_numpy(rs.randint(0, 16, size=(n, 64)).astype(np.uint8)).to(cuda)
+    d2 = torch.from_numpy(rs.randint(0, 16, size=(n, 64)).astype(np.uint8)).to(cuda)
+    d1[0] = 0
+    assert torch.equal(tcurve.shamir(G, d1, tab, d2), ops.double_mul_tables(G, d1, tab, d2))
+    tp = torch.stack([tab, G.expand_as(tab)], dim=1)
+    dP = torch.from_numpy(rs.randint(0, 16, size=(n, 2, 64)).astype(np.uint8)).to(cuda)
+    dQ = torch.zeros_like(dP)
+    got = tcurve.shamir(tp, dP, G, dQ)
+    assert torch.equal(got, ops.double_mul_tables(tp, dP, G, dQ))
+    torch.cuda.synchronize()
+
+
+def _straus_case(ops, g, rs, R, T, cuda):
+    """R rows of T terms on the card with identity points and zero digits
+    in them, the kernel against ops.msm_shared as affine points."""
+    pts = [g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(R * T)]
+    P = ops.pack_points(pts, cuda).reshape(R, T, ops.NCOORD, -1)
+    P[0, -1] = ops.identity((), cuda)
+    dig = torch.from_numpy(rs.randint(0, 16, size=(R, T, 64)).astype(np.uint8)).to(cuda)
+    dig[-1, 0] = 0
+    dig[0, :, :5] = 0
+    return _affine_equal(ops, tcurve.straus_msm(ops, P, dig), ops.msm_shared(P, dig))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_straus_msm_one_term_rows(ops, g, cuda):
+    """T = 1, vphase's form: many one-term rows, eight parts to a block."""
+    assert _straus_case(ops, g, np.random.RandomState(81), 300, 1, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [43, 130])
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_straus_msm_one_row(ops, g, T, cuda):
+    """R = 1, path B's form: one row folded in its block (43 terms) or in
+    three parts summed by ec_add (130 terms)."""
+    assert tcurve.straus_plan(1, T, tcurve.straus_teams(ops, cuda)).nparts == -(-T // 64)
+    assert _straus_case(ops, g, np.random.RandomState(82), 1, T, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_straus_msm_ragged_chunks(ops, g, cuda):
+    """Enough rows that a team takes two terms, and T = 3 not a multiple
+    of the chunk."""
+    R, T = tcurve.straus_teams(ops, cuda) // 2, 3
+    plan = tcurve.straus_plan(R, T, tcurve.straus_teams(ops, cuda))
+    assert plan.chunk == 2 and T % plan.chunk
+    rs = np.random.RandomState(83)
+    host = [g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(64)]
+    P = ops.pack_points(host, cuda)[torch.from_numpy(rs.randint(0, 64, size=R * T))]
+    P = P.reshape(R, T, ops.NCOORD, -1)
+    P[0, -1] = ops.identity((), cuda)
+    dig = torch.from_numpy(rs.randint(0, 16, size=(R, T, 64)).astype(np.uint8)).to(cuda)
+    dig[1] = 0
+    assert _affine_equal(ops, tcurve.straus_msm(ops, P, dig), ops.msm_shared(P, dig))
     torch.cuda.synchronize()
 
 

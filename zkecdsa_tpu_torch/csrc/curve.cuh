@@ -258,6 +258,274 @@ __device__ __forceinline__ void pt_dbl(Pt<CID>& r, const Pt<CID>& P) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// Point operations by a team of four lanes.
+//
+// Four consecutive lanes of a warp compute one point operation.  Each round
+// of a formula puts up to four independent Montgomery products on the four
+// lanes (lane q takes product q, its operands chosen without a branch) and
+// hands every product to every lane with __shfl_sync (width 4), so each
+// lane keeps the whole operands and the whole result, and the additions
+// between the rounds run on every lane.  The values are the per-thread
+// formulas' (every field operation returns the canonical residue), so a
+// team's result is bit for bit the per-thread one's.  Rounds on the chain,
+// per-thread products -> team rounds: RCB add 14 -> 5, RCB dbl 13 -> 4,
+// HWCD add 11 -> 3, HWCD dbl 9 -> 3.
+//
+// The result may alias an operand: the operands are read only before the
+// result is written.  Every lane of the warp must call a team routine at
+// the same point (the exchange names the full warp): a kernel runs idle
+// teams on clamped inputs and masks only their stores.
+// ---------------------------------------------------------------------------
+
+#define ZK_TEAM 4
+#define ZK_WARP_ALL 0xffffffffu
+
+__device__ __forceinline__ int team_lane() { return (int)(threadIdx.x & (ZK_TEAM - 1)); }
+
+// r = lane src's v, for every lane of the team
+__device__ __forceinline__ void fe_from_lane(Fe r, const Fe v, int src) {
+#pragma unroll
+    for (int i = 0; i < ZK_NL; ++i) r[i] = __shfl_sync(ZK_WARP_ALL, v[i], src, ZK_TEAM);
+}
+
+// r = (v0, v1, v2, v3)[q], without a branch
+__device__ __forceinline__ void fe_pick(Fe r, int q, const Fe v0, const Fe v1, const Fe v2,
+                                        const Fe v3) {
+    Fe lo, hi;
+    fe_select(lo, q & 1, v1, v0);
+    fe_select(hi, q & 1, v3, v2);
+    fe_select(r, q & 2, hi, lo);
+}
+
+// One round: lane q computes x*y; o_k = lane k's product on every lane
+__device__ __forceinline__ void team_mul4(Fe o0, Fe o1, Fe o2, Fe o3, const Fe x, const Fe y,
+                                          const ZkModulus& M) {
+    Fe p;
+    fe_mont_mul(p, x, y, M);
+    fe_from_lane(o0, p, 0);
+    fe_from_lane(o1, p, 1);
+    fe_from_lane(o2, p, 2);
+    fe_from_lane(o3, p, 3);
+}
+
+__device__ __forceinline__ void team_mul3(Fe o0, Fe o1, Fe o2, const Fe x, const Fe y,
+                                          const ZkModulus& M) {
+    Fe p;
+    fe_mont_mul(p, x, y, M);
+    fe_from_lane(o0, p, 0);
+    fe_from_lane(o1, p, 1);
+    fe_from_lane(o2, p, 2);
+}
+
+__device__ __forceinline__ void team_mul2(Fe o0, Fe o1, const Fe x, const Fe y,
+                                          const ZkModulus& M) {
+    Fe p;
+    fe_mont_mul(p, x, y, M);
+    fe_from_lane(o0, p, 0);
+    fe_from_lane(o1, p, 1);
+}
+
+// RCB15 complete addition, a = -3 (weier_add's values in 5 rounds)
+template <int CID>
+__device__ __forceinline__ void team_weier_add(Pt<CID>& r, const Pt<CID>& P, const Pt<CID>& Q) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* b = ZK_COEF[CurveT<CID>::B];
+    const int q = team_lane();
+    const bool odd = q & 1;
+    Fe x, y, m0, m1, m2, sxy, syz, sxz, bm2, bsxz, u, w, zc, xc, v, a0, a3;
+    // X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2)
+    fe_add(x, P.c[0], P.c[1], M);
+    fe_add(y, Q.c[0], Q.c[1], M);
+    fe_pick(x, q, P.c[0], P.c[1], P.c[2], x);
+    fe_pick(y, q, Q.c[0], Q.c[1], Q.c[2], y);
+    team_mul4(m0, m1, m2, sxy, x, y, M);
+    // (Y1+Z1)(Y2+Z2), (X1+Z1)(X2+Z2)
+    fe_select(x, odd, P.c[0], P.c[1]);
+    fe_select(y, odd, Q.c[0], Q.c[1]);
+    fe_add(x, x, P.c[2], M);
+    fe_add(y, y, Q.c[2], M);
+    team_mul2(syz, sxz, x, y, M);
+    fe_sub(sxy, sxy, m0, M);
+    fe_sub(sxy, sxy, m1, M);
+    fe_sub(syz, syz, m1, M);
+    fe_sub(syz, syz, m2, M);
+    fe_sub(sxz, sxz, m0, M);
+    fe_sub(sxz, sxz, m2, M);
+    // b m2, b sxz, and sxy u with u = 3 (m0 - m2) known already
+    fe_sub(u, m0, m2, M);
+    fe_mul_small<3>(u, u, M);
+    fe_pick(x, q, m2, sxz, sxy, sxy);
+    fe_pick(y, q, b, b, u, u);
+    team_mul3(bm2, bsxz, a3, x, y, M);  // a3 = sxy u
+    fe_sub(w, sxz, bm2, M);
+    fe_mul_small<3>(w, w, M);            // w = 3 (sxz - b m2)
+    fe_sub(zc, m1, w, M);
+    fe_add(xc, m1, w, M);
+    fe_mul_small<3>(v, m2, M);
+    fe_sub(v, bsxz, v, M);
+    fe_sub(v, v, m0, M);
+    fe_mul_small<3>(v, v, M);            // v = 3 (b sxz - 3 m2 - m0)
+    // sxy xc, syz v, xc zc, u v
+    fe_pick(x, q, sxy, syz, xc, u);
+    fe_pick(y, q, xc, v, zc, v);
+    Fe p0, p1, p2, p3;
+    team_mul4(p0, p1, p2, p3, x, y, M);
+    // syz zc, the round's one product: every lane computes it
+    fe_mont_mul(a0, syz, zc, M);
+    fe_sub(r.c[0], p0, p1, M);           // x3 = sxy xc - syz v
+    fe_add(r.c[1], p2, p3, M);           // y3 = xc zc + u v
+    fe_add(r.c[2], a0, a3, M);           // z3 = syz zc + sxy u
+}
+
+// RCB15 doubling, a = -3 (weier_dbl's values in 4 rounds)
+template <int CID>
+__device__ __forceinline__ void team_weier_dbl(Pt<CID>& r, const Pt<CID>& P) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* b = ZK_COEF[CurveT<CID>::B];
+    const int q = team_lane();
+    const bool odd = q & 1;
+    Fe x, y, xx, yy, zz, xy2, xz2, yz2, bzz, bxz2, z4, w, zc, xc, v, u;
+    // XX, YY, ZZ, XY
+    fe_pick(x, q, P.c[0], P.c[1], P.c[2], P.c[0]);
+    fe_pick(y, q, P.c[0], P.c[1], P.c[2], P.c[1]);
+    team_mul4(xx, yy, zz, xy2, x, y, M);
+    // YZ, XZ
+    fe_select(x, odd, P.c[0], P.c[1]);
+    team_mul2(yz2, xz2, x, P.c[2], M);
+    fe_add(xy2, xy2, xy2, M);
+    fe_add(xz2, xz2, xz2, M);
+    fe_add(yz2, yz2, yz2, M);
+    // b zz, b xz2, yz2 yy
+    fe_pick(x, q, zz, xz2, yz2, yz2);
+    fe_pick(y, q, b, b, yy, yy);
+    team_mul3(bzz, bxz2, z4, x, y, M);
+    fe_sub(w, bzz, xz2, M);
+    fe_mul_small<3>(w, w, M);            // w = 3 (b zz - xz2)
+    fe_sub(zc, yy, w, M);
+    fe_add(xc, yy, w, M);
+    fe_mul_small<3>(v, zz, M);
+    fe_sub(v, bxz2, v, M);
+    fe_sub(v, v, xx, M);
+    fe_mul_small<3>(v, v, M);            // v = 3 (b xz2 - 3 zz - xx)
+    fe_sub(u, xx, zz, M);
+    fe_mul_small<3>(u, u, M);            // u = 3 (xx - zz)
+    // xy2 zc, yz2 v, xc zc, u v
+    fe_pick(x, q, xy2, yz2, xc, u);
+    fe_pick(y, q, zc, v, zc, v);
+    Fe p0, p1, p2, p3;
+    team_mul4(p0, p1, p2, p3, x, y, M);
+    fe_sub(r.c[0], p0, p1, M);           // x3 = xy2 zc - yz2 v
+    fe_add(r.c[1], p2, p3, M);           // y3 = xc zc + u v
+    fe_mul_small<4>(r.c[2], z4, M);      // z3 = 4 yz2 yy
+}
+
+// HWCD08 unified addition (edw_add's values in 3 rounds)
+template <int CID>
+__device__ __forceinline__ void team_edw_add(Pt<CID>& r, const Pt<CID>& P, const Pt<CID>& Q) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* ca = ZK_COEF[CurveT<CID>::A];
+    const uint32_t* cd = ZK_COEF[CurveT<CID>::D];
+    const int q = team_lane();
+    Fe x, y, A, B, TT, D, E, C, aA, F, G, H;
+    // X1X2, Y1Y2, T1T2, Z1Z2
+    fe_pick(x, q, P.c[0], P.c[1], P.c[2], P.c[3]);
+    fe_pick(y, q, Q.c[0], Q.c[1], Q.c[2], Q.c[3]);
+    team_mul4(A, B, TT, D, x, y, M);
+    // (X1+Y1)(X2+Y2), d T1T2, a A
+    fe_add(x, P.c[0], P.c[1], M);
+    fe_add(y, Q.c[0], Q.c[1], M);
+    fe_pick(x, q, x, cd, ca, ca);
+    fe_pick(y, q, y, TT, A, A);
+    team_mul3(E, C, aA, x, y, M);
+    fe_sub(E, E, A, M);
+    fe_sub(E, E, B, M);
+    fe_sub(F, D, C, M);
+    fe_add(G, D, C, M);
+    fe_sub(H, B, aA, M);
+    // E F, G H, E H, F G
+    fe_pick(x, q, E, G, E, F);
+    fe_pick(y, q, F, H, H, G);
+    team_mul4(r.c[0], r.c[1], r.c[2], r.c[3], x, y, M);
+}
+
+// HWCD08 doubling (edw_dbl's values in 3 rounds)
+template <int CID>
+__device__ __forceinline__ void team_edw_dbl(Pt<CID>& r, const Pt<CID>& P) {
+    const ZkModulus& M = curve_mod<CID>();
+    const uint32_t* ca = ZK_COEF[CurveT<CID>::A];
+    const int q = team_lane();
+    Fe x, y, A, B, C, E, D, F, G, H;
+    // XX, YY, ZZ, (X+Y)^2
+    fe_add(x, P.c[0], P.c[1], M);
+    fe_pick(x, q, P.c[0], P.c[1], P.c[3], x);
+    team_mul4(A, B, C, E, x, x, M);
+    fe_add(C, C, C, M);
+    // a A, the round's one product: every lane computes it
+    fe_mont_mul(D, ca, A, M);
+    fe_sub(E, E, A, M);
+    fe_sub(E, E, B, M);
+    fe_add(G, D, B, M);
+    fe_sub(F, G, C, M);
+    fe_sub(H, D, B, M);
+    // E F, G H, E H, F G
+    fe_pick(x, q, E, G, E, F);
+    fe_pick(y, q, F, H, H, G);
+    team_mul4(r.c[0], r.c[1], r.c[2], r.c[3], x, y, M);
+}
+
+template <int CID>
+__device__ __forceinline__ void team_add(Pt<CID>& r, const Pt<CID>& P, const Pt<CID>& Q) {
+    if constexpr (CurveT<CID>::C == 4) {
+        team_edw_add<CID>(r, P, Q);
+    } else {
+        team_weier_add<CID>(r, P, Q);
+    }
+}
+
+template <int CID>
+__device__ __forceinline__ void team_dbl(Pt<CID>& r, const Pt<CID>& P) {
+    if constexpr (CurveT<CID>::C == 4) {
+        team_edw_dbl<CID>(r, P);
+    } else {
+        team_weier_dbl<CID>(r, P);
+    }
+}
+
+// Team conversions at a kernel's boundary: lane q converts coordinate q
+// (q < C) and the team shares the results.
+template <int CID>
+__device__ __forceinline__ void team_to_mont(Pt<CID>& r, const uint32_t* g) {
+    const ZkModulus& M = curve_mod<CID>();
+    constexpr int C = CurveT<CID>::C;
+    const int q = team_lane();
+    Fe t, m;
+    fe_load(t, g + (q < C ? q : 0) * ZK_NL);
+    fe_to_mont(m, t, M);
+#pragma unroll
+    for (int k = 0; k < C; ++k) fe_from_lane(r.c[k], m, k);
+}
+
+// r = coordinate q of P for lane q (the last one for q >= C)
+template <int CID>
+__device__ __forceinline__ void team_coord(Fe r, const Pt<CID>& P) {
+    if constexpr (CurveT<CID>::C == 4) {
+        fe_pick(r, team_lane(), P.c[0], P.c[1], P.c[2], P.c[3]);
+    } else {
+        fe_pick(r, team_lane(), P.c[0], P.c[1], P.c[2], P.c[2]);
+    }
+}
+
+// Coordinate q of P (q < C) in standard form, stored by lane q if `live`.
+template <int CID>
+__device__ __forceinline__ void team_store(uint32_t* g, const Pt<CID>& P, bool live) {
+    const int q = team_lane();
+    Fe c;
+    team_coord<CID>(c, P);
+    fe_from_mont(c, c, curve_mod<CID>());
+    if (live && q < CurveT<CID>::C) fe_store(g + q * ZK_NL, c);
+}
+
 // r = c ? P : Q, without a branch
 template <int CID>
 __device__ __forceinline__ void pt_select(Pt<CID>& r, bool c, const Pt<CID>& P, const Pt<CID>& Q) {

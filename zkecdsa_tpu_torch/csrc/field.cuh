@@ -85,57 +85,90 @@ __device__ __forceinline__ void fe_select(Fe r, bool c, const Fe a, const Fe b) 
     for (int i = 0; i < ZK_NL; ++i) r[i] = (a[i] & m) | (b[i] & ~m);
 }
 
+// The additions below run their carries in the PTX carry flag (add.cc/addc,
+// sub.cc/subc): one instruction a limb, against two or three for a 64-bit
+// emulated carry.  Each chain is one asm statement, so nothing can come
+// between a carry and its use.
+#define ZK_L9(v) "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(v[4]), "r"(v[5]), "r"(v[6]), \
+                 "r"(v[7]), "r"(v[8])
+#define ZK_O9(v) "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]), "=r"(v[4]), "=r"(v[5]), \
+                 "=r"(v[6]), "=r"(v[7]), "=r"(v[8])
+
 // r = t - p if t >= p else t, for t < 2p held in ZK_NL limbs plus `hi`.
 __device__ __forceinline__ void fe_reduce_once(Fe r, const uint32_t* t, uint32_t hi,
                                                const ZkModulus& M) {
-    uint32_t d[ZK_NL];
-    uint64_t borrow = 0;
+    uint32_t d[ZK_NL], top;
+    // d = t - p; top = hi - borrow: 0 when t >= p, all ones when t < p
+    asm("sub.cc.u32 %0, %10, %19;\n\t"
+        "subc.cc.u32 %1, %11, %20;\n\t"
+        "subc.cc.u32 %2, %12, %21;\n\t"
+        "subc.cc.u32 %3, %13, %22;\n\t"
+        "subc.cc.u32 %4, %14, %23;\n\t"
+        "subc.cc.u32 %5, %15, %24;\n\t"
+        "subc.cc.u32 %6, %16, %25;\n\t"
+        "subc.cc.u32 %7, %17, %26;\n\t"
+        "subc.cc.u32 %8, %18, %27;\n\t"
+        "subc.u32 %9, %28, 0;"
+        : ZK_O9(d), "=r"(top)
+        : ZK_L9(t), ZK_L9(M.p), "r"(hi));
 #pragma unroll
-    for (int i = 0; i < ZK_NL; ++i) {
-        const uint64_t s = (uint64_t)t[i] - M.p[i] - borrow;
-        d[i] = (uint32_t)s;
-        borrow = (s >> 32) & 1u;
-    }
-    // t >= p exactly when the subtraction did not borrow past the top limb
-    const bool ge = (hi != 0u) || (borrow == 0);
-    fe_select(r, ge, d, t);
+    for (int i = 0; i < ZK_NL; ++i) r[i] = (t[i] & top) | (d[i] & ~top);
 }
 
 // r = a + b mod p (a, b canonical, either domain)
 __device__ __forceinline__ void fe_add(Fe r, const Fe a, const Fe b, const ZkModulus& M) {
-    uint32_t s[ZK_NL];
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < ZK_NL; ++i) {
-        c += (uint64_t)a[i] + b[i];
-        s[i] = (uint32_t)c;
-        c >>= 32;
-    }
-    fe_reduce_once(r, s, (uint32_t)c, M);
+    uint32_t s[ZK_NL], hi;
+    asm("add.cc.u32 %0, %10, %19;\n\t"
+        "addc.cc.u32 %1, %11, %20;\n\t"
+        "addc.cc.u32 %2, %12, %21;\n\t"
+        "addc.cc.u32 %3, %13, %22;\n\t"
+        "addc.cc.u32 %4, %14, %23;\n\t"
+        "addc.cc.u32 %5, %15, %24;\n\t"
+        "addc.cc.u32 %6, %16, %25;\n\t"
+        "addc.cc.u32 %7, %17, %26;\n\t"
+        "addc.cc.u32 %8, %18, %27;\n\t"
+        "addc.u32 %9, 0, 0;"
+        : ZK_O9(s), "=r"(hi)
+        : ZK_L9(a), ZK_L9(b));
+    fe_reduce_once(r, s, hi, M);
 }
 
 // r = a - b mod p (a, b canonical, either domain)
 __device__ __forceinline__ void fe_sub(Fe r, const Fe a, const Fe b, const ZkModulus& M) {
-    uint32_t d[ZK_NL];
-    uint64_t borrow = 0;
+    uint32_t d[ZK_NL], m, q[ZK_NL];
+    // d = a - b; m = all ones on a borrow
+    asm("sub.cc.u32 %0, %10, %19;\n\t"
+        "subc.cc.u32 %1, %11, %20;\n\t"
+        "subc.cc.u32 %2, %12, %21;\n\t"
+        "subc.cc.u32 %3, %13, %22;\n\t"
+        "subc.cc.u32 %4, %14, %23;\n\t"
+        "subc.cc.u32 %5, %15, %24;\n\t"
+        "subc.cc.u32 %6, %16, %25;\n\t"
+        "subc.cc.u32 %7, %17, %26;\n\t"
+        "subc.cc.u32 %8, %18, %27;\n\t"
+        "subc.u32 %9, 0, 0;"
+        : ZK_O9(d), "=r"(m)
+        : ZK_L9(a), ZK_L9(b));
 #pragma unroll
-    for (int i = 0; i < ZK_NL; ++i) {
-        const uint64_t s = (uint64_t)a[i] - b[i] - borrow;
-        d[i] = (uint32_t)s;
-        borrow = (s >> 32) & 1u;
-    }
-    const uint32_t m = 0u - (uint32_t)borrow;  // add p back on a borrow
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < ZK_NL; ++i) {
-        c += (uint64_t)d[i] + (M.p[i] & m);
-        r[i] = (uint32_t)c;
-        c >>= 32;
-    }
+    for (int i = 0; i < ZK_NL; ++i) q[i] = M.p[i] & m;  // add p back on a borrow
+    asm("add.cc.u32 %0, %9, %18;\n\t"
+        "addc.cc.u32 %1, %10, %19;\n\t"
+        "addc.cc.u32 %2, %11, %20;\n\t"
+        "addc.cc.u32 %3, %12, %21;\n\t"
+        "addc.cc.u32 %4, %13, %22;\n\t"
+        "addc.cc.u32 %5, %14, %23;\n\t"
+        "addc.cc.u32 %6, %15, %24;\n\t"
+        "addc.cc.u32 %7, %16, %25;\n\t"
+        "addc.u32 %8, %17, %26;"
+        : ZK_O9(r)
+        : ZK_L9(d), ZK_L9(q));
 }
 
 // Montgomery product r = a * b * R^-1 mod p (CIOS, 32-bit words, 64-bit
-// accumulators).  a, b < p gives r < p.
+// accumulators: ptxas turns each step into one IMAD.WIDE and a 64-bit add,
+// fewer instructions than the same rows as PTX mad.lo.cc/madc.hi.cc
+// chains, which it splits into IMAD and IADD3 pairs; see PERF.md).
+// a, b < p gives r < p.
 __device__ __forceinline__ void fe_mont_mul(Fe r, const Fe a, const Fe b, const ZkModulus& M) {
     uint32_t t[ZK_NL + 2];
 #pragma unroll

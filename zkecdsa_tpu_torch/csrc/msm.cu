@@ -1,88 +1,150 @@
 // straus_msm: per row, sum_t s_t * P_t with 4-bit MSB-first digits
-// (Straus / interleaved windows: doublings are shared by the terms of a
+// (Straus / interleaved windows: the doublings are shared by the terms of a
 // chunk).  Points [R, T, C, 9] canonical projective, digits [R, T, 64]
-// uint8 -> one partial sum per (row, chunk) [R, nchunks, C, 9]; the caller
-// (zkecdsa_tpu_torch/ops/curve_ops.py::straus_msm) tree-sums the partials
-// of a row with ec_add.
+// uint8 -> [R, nparts, C, 9] canonical partial sums; the caller
+// (zkecdsa_tpu_torch/ops/curve_ops.py::straus_msm, whose straus_plan picks
+// the geometry) tree-sums the parts of a row with ec_add when nparts > 1.
 //
 // Replaces zkecdsa_tpu/ops/curve_ops.py:393 msm_shared (and :164
 // scalar_mul_table, the T = 1 case the verifier's window muls use).
 //
-// Design: one thread per (row, chunk of `chunk` terms).  The thread builds
-// the 16-entry window table of each of its terms into global scratch
-// (Montgomery form, private to the thread), then runs the 64 digit columns:
-// 4 doublings of its one accumulator, one table add per term.  Per term
-// that is 64 adds + 15 table adds + 256/chunk doublings, against a ladder
-// per term's 256 doublings + 64 adds.
-//
-// Bound on the H100: 32-bit integer multiply-adds (each point op is 11-14
-// Montgomery products); the table traffic is C*36 bytes per lookup, far
-// below the operations' time.
+// Bound on the H100: the dependent chain of point operations of one team,
+// not the 32-bit multiply-add rate, at every shape the verifier gives it:
+// [5376, 1], [256, 48] and path B's one-row calls hold far fewer chains
+// than the card can run at once, and at [16, 8192] a chain of ~1,000
+// point operations still keeps each SM's pipes waiting on its own carries.
+// Design: a team of four lanes (curve.cuh) runs each point operation, so a
+// P-256 add is 5 rounds of one product instead of 14 products in a row;
+// one team per (row, chunk of `chunk` terms), with the chunk taken from
+// the shape so the teams fill every SM with a few warps.  A team builds
+// its terms' 16-entry window tables into global scratch (Montgomery form,
+// L2-resident, read back only by the team), runs the 64 digit columns (4
+// doublings of its accumulator, one table add per term), and the `group`
+// teams of a row part fold their sums in shared memory by a tree of team
+// adds, so a row of up to 64 chunks leaves the kernel as one point.
 
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
 
-template <int CID>
-__global__ void straus_kernel(long long R, long long T, int chunk, long long nchunks,
-                              const uint32_t* __restrict__ points,
-                              const uint8_t* __restrict__ digits, uint32_t* __restrict__ table,
-                              uint32_t* __restrict__ partial) {
-    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= R * nchunks) return;
-    constexpr int C = CurveT<CID>::C;
-    constexpr long long PT = (long long)C * ZK_NL;  // limbs per point
-    const long long r = idx / nchunks, c = idx % nchunks;
-    const long long t0 = c * chunk;
-    const long long t1 = (t0 + chunk < T) ? t0 + chunk : T;
+namespace {
 
-    Pt<CID> P, e, acc, tmp;
-    for (long long t = t0; t < t1; ++t) {
-        const long long term = r * T + t;
+constexpr int MAX_TEAMS = 64;  // teams per block: 256 threads
+constexpr int MAX_THREADS = MAX_TEAMS * ZK_TEAM;
+
+template <int CID>
+__global__ void __launch_bounds__(MAX_THREADS) straus_kernel(
+    long long R, long long T, int chunk, int group, int rows_per_block,
+    const uint32_t* __restrict__ points, const uint8_t* __restrict__ digits,
+    uint32_t* __restrict__ table, uint32_t* __restrict__ out) {
+    constexpr int C = CurveT<CID>::C;
+    constexpr int PT = C * ZK_NL;  // limbs per point
+    __shared__ uint32_t folds[MAX_TEAMS * PT];
+    const long long nchunks = (T + chunk - 1) / chunk;
+    const long long nparts = (nchunks + group - 1) / group;
+    const int tb = threadIdx.x / ZK_TEAM;  // team in the block
+    const int q = team_lane();
+    const int g = tb % group;              // team in its part
+    const long long seg = (long long)blockIdx.x * rows_per_block + tb / group;  // (row, part)
+    const bool live = tb < rows_per_block * group && seg < R * nparts;
+    const long long segc = live ? seg : 0;
+    const long long r = segc / nparts;
+    const long long c = (segc % nparts) * group + g;  // chunk of the row
+    const bool live_chunk = live && c < nchunks;
+
+    // window tables of the chunk's terms: entry k = entry k-1 + P, from the
+    // identity (the reference's order)
+    Pt<CID> P, e, acc;
+#pragma unroll 1
+    for (int j = 0; j < chunk; ++j) {
+        const long long t = c * chunk + j;
+        const bool tlive = live_chunk && t < T;
+        const long long term = r * T + (tlive ? t : 0);
         uint32_t* tab = table + term * 16 * PT;
-        pt_load<CID>(P, points + term * PT);
+        team_to_mont<CID>(P, points + term * PT);
         pt_identity<CID>(e);
-        pt_store_raw<CID>(tab, e);
-        pt_store_raw<CID>(tab + PT, P);
-        e = P;
-        for (int k = 2; k < 16; ++k) {
-            pt_add<CID>(tmp, e, P);
-            e = tmp;
-            pt_store_raw<CID>(tab + k * PT, e);
+#pragma unroll 1
+        for (int k = 0; k < 16; ++k) {
+            if (k == 1) e = P;
+            if (k >= 2) team_add<CID>(e, e, P);
+            if (tlive && q < C) {
+                Fe v;
+                team_coord<CID>(v, e);
+                fe_store(tab + k * PT + q * ZK_NL, v);
+            }
         }
     }
+    __syncwarp();
 
     pt_identity<CID>(acc);
+#pragma unroll 1
     for (int col = 0; col < 64; ++col) {
 #pragma unroll 1
-        for (int k = 0; k < 4; ++k) {
-            pt_dbl<CID>(tmp, acc);
-            acc = tmp;
-        }
-        for (long long t = t0; t < t1; ++t) {
-            const long long term = r * T + t;
-            const int d = digits[term * 64 + col];
-            pt_load_raw<CID>(e, table + (term * 16 + d) * PT);
-            pt_add<CID>(tmp, acc, e);
-            acc = tmp;
+        for (int d = 0; d < 4; ++d) team_dbl<CID>(acc, acc);
+#pragma unroll 1
+        for (int j = 0; j < chunk; ++j) {
+            const long long t = c * chunk + j;
+            if (live_chunk && t < T) {
+                const long long term = r * T + t;
+                pt_load_raw<CID>(e, table + (term * 16 + digits[term * 64 + col]) * PT);
+            } else {
+                pt_identity<CID>(e);
+            }
+            team_add<CID>(acc, acc, e);
         }
     }
-    pt_store<CID>(partial + idx * PT, acc);
+
+    // fold the part's `group` sums: at step h, team g (g % 2h == 0) takes
+    // team g + h's sum; a team without a partner keeps its own
+    uint32_t* mine = folds + tb * PT;
+    if (q == 0) pt_store_raw<CID>(mine, acc);
+    __syncthreads();
+    for (int h = 1; h < group; h *= 2) {
+        const bool take = live && g % (2 * h) == 0 && g + h < group;
+        if (take) {
+            pt_load_raw<CID>(e, mine + h * PT);
+        } else {
+            pt_identity<CID>(e);
+        }
+        team_add<CID>(acc, acc, e);
+        __syncthreads();
+        if (take && q == 0) pt_store_raw<CID>(mine, acc);
+        __syncthreads();
+    }
+    team_store<CID>(out + segc * PT, acc, live && g == 0);
 }
 
-extern "C" int zk_straus_msm(int curve, long long R, long long T, int chunk, const void* points,
-                             const void* digits, void* table, void* partial, void* stream) {
+}  // namespace
+
+extern "C" int zk_straus_msm(int curve, long long R, long long T, int chunk, int group,
+                             int rows_per_block, const void* points, const void* digits,
+                             void* table, void* out, void* stream) {
     if (R * T == 0) return 0;
-    if (chunk <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
+    if (chunk <= 0 || group <= 0 || rows_per_block <= 0 || group * rows_per_block > MAX_TEAMS)
+        return (int)cudaErrorInvalidValue;
     const long long nchunks = (T + chunk - 1) / chunk;
-    const int threads = 64;
-    const unsigned blocks = (unsigned)((R * nchunks + threads - 1) / threads);
-    const int bad = zk_dispatch_curve(curve, [&](auto c) {
-        constexpr int CID = decltype(c)::value;
+    const long long nparts = (nchunks + group - 1) / group;
+    const int threads = (group * rows_per_block * ZK_TEAM + 31) / 32 * 32;
+    const unsigned blocks = (unsigned)((R * nparts + rows_per_block - 1) / rows_per_block);
+    cudaStream_t st = (cudaStream_t)stream;
+    const int bad = zk_dispatch_curve(curve, [&](auto cv) {
+        constexpr int CID = decltype(cv)::value;
         straus_kernel<CID><<<blocks, threads, 0, st>>>(
-            R, T, chunk, nchunks, (const uint32_t*)points, (const uint8_t*)digits,
-            (uint32_t*)table, (uint32_t*)partial);
+            R, T, chunk, group, rows_per_block, (const uint32_t*)points,
+            (const uint8_t*)digits, (uint32_t*)table, (uint32_t*)out);
     });
     return bad ? bad : (int)cudaGetLastError();
+}
+
+// One-warp blocks of straus_kernel<curve> that one SM of the current device
+// holds at once (its registers, shared memory and block limit, as the
+// occupancy calculator counts them), for straus_plan's geometry.
+extern "C" int zk_straus_resident_warps(int curve, int* warps) {
+    *warps = 0;
+    cudaError_t err = cudaSuccess;
+    const int bad = zk_dispatch_curve(curve, [&](auto cv) {
+        constexpr int CID = decltype(cv)::value;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(warps, straus_kernel<CID>, 32, 0);
+    });
+    return bad ? bad : (int)err;
 }

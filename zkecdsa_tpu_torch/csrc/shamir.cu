@@ -9,48 +9,91 @@
 // complete formulas, the order of the reference's scan, so the projective
 // result equals the plain version's (ops/curve_ops.py).
 //
-// Bound on the H100: 32-bit integer multiply-adds; per row 256 doublings and
-// 128 adds (~5,100 Montgomery products).  One thread per row: the prover's
-// calls have 256-512 rows, so the card is nearly empty and the time is the
-// latency of one row's dependent chain of products, not the IMAD rate.
+// Bound on the H100: the latency of one row's dependent chain.  The
+// prover's calls have 256 and 512 rows, far too few to fill the card's
+// 32-bit multiply-add pipes, so a call lasts as long as one row's 64
+// columns of 4 doublings and 2 adds.  Design: a team of four lanes
+// (curve.cuh) runs each point operation, which cuts a row's chain from
+// ~5,100 Montgomery products to 64 * (4*4 + 2*5) = 1,664 rounds of one
+// product; 8 rows to a one-warp block.  The block first stages its rows'
+// tables in shared memory (cp.async) and converts them to Montgomery form
+// once, so a lookup is a shared-memory read and no product; a shared table
+// (stride 0) is staged once per block.
 
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
 
-__global__ void shamir_kernel(long long B, const uint32_t* __restrict__ tp, long long sp,
-                              const uint8_t* __restrict__ dP, const uint32_t* __restrict__ tq,
-                              long long sq, const uint8_t* __restrict__ dQ,
-                              uint32_t* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    constexpr int CID = ZK_CURVE_P256;
-    constexpr int PT = 3 * ZK_NL;  // limbs per point
-    const uint32_t* rp = tp + i * sp;
-    const uint32_t* rq = tq + i * sq;
-    Pt<CID> acc, tmp, e;
+namespace {
+
+constexpr int CID = ZK_CURVE_P256;
+constexpr int PT = 3 * ZK_NL;          // limbs per point
+constexpr int TAB = 16 * PT;           // limbs per window table
+constexpr int ROWS = 8;                // rows (teams) per block: one warp
+constexpr int THREADS = ROWS * ZK_TEAM;
+constexpr int CHUNKS = TAB / 4;        // 16-byte pieces per table
+
+// Copy the block's n tables (n = 1 for a shared one) from g to s as
+// 16-byte cp.async pieces, then convert every coordinate to Montgomery form.
+__device__ __forceinline__ void stage_tables(uint32_t* s, const uint32_t* g, long long stride,
+                                             int n) {
+    for (int c = threadIdx.x; c < n * CHUNKS; c += THREADS) {
+        const int row = c / CHUNKS, piece = c % CHUNKS;
+        const uint32_t* src = g + row * stride + piece * 4;
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(s + row * TAB + piece * 4);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src));
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    const ZkModulus& M = curve_mod<CID>();
+    for (int e = threadIdx.x; e < n * 16 * 3; e += THREADS) {
+        Fe t;
+        fe_load(t, s + e * ZK_NL);
+        fe_to_mont(t, t, M);
+        fe_store(s + e * ZK_NL, t);
+    }
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS) shamir_kernel(
+    long long B, const uint32_t* __restrict__ tp, long long sp, const uint8_t* __restrict__ dP,
+    const uint32_t* __restrict__ tq, long long sq, const uint8_t* __restrict__ dQ,
+    uint32_t* __restrict__ out) {
+    __shared__ __align__(16) uint32_t stp[ROWS * TAB];
+    __shared__ __align__(16) uint32_t stq[ROWS * TAB];
+    const long long row0 = (long long)blockIdx.x * ROWS;
+    const int rows = (int)(B - row0 < ROWS ? B - row0 : ROWS);
+    const int team = threadIdx.x / ZK_TEAM;
+    // an idle team (past B) runs the block's last row and stores nothing
+    const int k = team < rows ? team : rows - 1;
+    const long long i = row0 + k;
+    stage_tables(stp, tp + (sp ? row0 * sp : 0), sp, sp ? rows : 1);
+    stage_tables(stq, tq + (sq ? row0 * sq : 0), sq, sq ? rows : 1);
+    const uint32_t* rp = stp + (sp ? k : 0) * TAB;
+    const uint32_t* rq = stq + (sq ? k : 0) * TAB;
+    const uint8_t* ep = dP + i * 64;
+    const uint8_t* eq = dQ + i * 64;
+    Pt<CID> acc, e;
     pt_identity<CID>(acc);
     for (int col = 0; col < 64; ++col) {
 #pragma unroll 1
-        for (int k = 0; k < 4; ++k) {
-            pt_dbl<CID>(tmp, acc);
-            acc = tmp;
-        }
-        pt_load<CID>(e, rp + dP[i * 64 + col] * PT);
-        pt_add<CID>(tmp, acc, e);
-        pt_load<CID>(e, rq + dQ[i * 64 + col] * PT);
-        pt_add<CID>(acc, tmp, e);
+        for (int d = 0; d < 4; ++d) team_dbl<CID>(acc, acc);
+        pt_load_raw<CID>(e, rp + ep[col] * PT);
+        team_add<CID>(acc, acc, e);
+        pt_load_raw<CID>(e, rq + eq[col] * PT);
+        team_add<CID>(acc, acc, e);
     }
-    pt_store<CID>(out + i * PT, acc);
+    team_store<CID>(out + i * PT, acc, team < rows);
 }
+
+}  // namespace
 
 extern "C" int zk_shamir(long long B, const void* tp, long long sp, const void* dP,
                          const void* tq, long long sq, const void* dQ, void* out,
                          void* stream) {
     if (B == 0) return 0;
-    const int threads = 32;  // one warp per block: spread the few rows over SMs
-    const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-    shamir_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const unsigned blocks = (unsigned)((B + ROWS - 1) / ROWS);
+    shamir_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         B, (const uint32_t*)tp, sp, (const uint8_t*)dP, (const uint32_t*)tq, sq,
         (const uint8_t*)dQ, (uint32_t*)out);
     return (int)cudaGetLastError();

@@ -23,6 +23,10 @@ The bucket MSM's kernels are in ``ops/msm_bucket.py``.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
@@ -42,6 +46,8 @@ __all__ = [
     "ec_add",
     "to_affine",
     "straus_msm",
+    "straus_plan",
+    "straus_teams",
     "comb_mixed",
     "sum_reduce",
     "window_table",
@@ -583,15 +589,57 @@ def sum_reduce(ops: CurveOps, P: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return P[0]
 
 
-# threads that keep every SM of the card busy with a few warps
-_MSM_THREADS = 132 * 128
+_FOLD_TEAMS = 64  # teams of one block, folded in shared memory (msm.cu MAX_TEAMS)
 
 
-def msm_chunk(R: int, T: int) -> int:
-    """Terms per thread in :func:`straus_msm`: enough threads to fill the
-    card, and between 8 and 32 terms so each accumulator's doublings are
-    shared by a chunk (a ladder per term costs ~4x the point operations)."""
-    return max(8, min(32, (R * T) // _MSM_THREADS))
+@functools.lru_cache(maxsize=None)
+def _straus_teams(curve_id: int, index: int) -> int:
+    lib = _build.load()
+    warps = ctypes.c_int()
+    with torch.cuda.device(index):
+        code = lib.zk_straus_resident_warps(curve_id, ctypes.byref(warps))
+    _build.check(code, "zk_straus_resident_warps")
+    return torch.cuda.get_device_properties(index).multi_processor_count * warps.value * 8
+
+
+def straus_teams(ops: CurveOps, device) -> int:
+    """Teams of four lanes that :func:`straus_msm`'s kernel keeps resident
+    on a CUDA device at once: its SMs times the one-warp blocks of the
+    kernel an SM holds (the occupancy calculator's count from the kernel's
+    registers and shared memory), eight teams a warp."""
+    device = torch.device(device)
+    return _straus_teams(ops.curve_id, torch.cuda.current_device() if device.index is None else device.index)
+
+
+@dataclasses.dataclass(frozen=True)
+class StrausPlan:
+    """Launch geometry of :func:`straus_msm` for R rows of T terms: one
+    team per (row, chunk of ``chunk`` terms), ``nchunks`` chunks a row;
+    ``group`` teams of a row fold their sums in one block, giving
+    ``nparts`` sums a row; a block holds ``rows_per_block`` such parts
+    (csrc/msm.cu rounds its threads up to whole warps)."""
+
+    chunk: int
+    nchunks: int
+    group: int
+    nparts: int
+    rows_per_block: int
+
+
+def straus_plan(R: int, T: int, teams: int) -> StrausPlan:
+    """The fewest terms per team that still let R * nchunks teams fit the
+    ``teams`` the card keeps resident at once (:func:`straus_teams`): a
+    team's chain is its terms' table builds (14 adds each), 256 doublings
+    and 64 adds a term, so fewer terms give shorter chains while the teams
+    fit, and a second wave would double the time.  A row of up to 64
+    chunks is one part (folded in its block, no ``ec_add`` launch); small
+    parts share a block of at least one warp."""
+    want = max(1, teams // max(1, R))
+    chunk = -(-T // min(T, want)) if T else 1
+    nchunks = -(-T // chunk) if T else 0
+    group = max(1, min(nchunks, _FOLD_TEAMS))
+    nparts = -(-nchunks // group)
+    return StrausPlan(chunk, nchunks, group, nparts, max(1, 8 // group))
 
 
 def straus_table_bytes(ops: CurveOps, R: int, T: int) -> int:
@@ -604,11 +652,13 @@ def straus_msm(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor) -> tor
     [R, T, 64] MSB-first nibbles (uint8) -> [R, C, 9].
 
     Kernel ``csrc/msm.cu`` (replaces ``zkecdsa_tpu/ops/curve_ops.py:393
-    msm_shared``): one thread per chunk of terms accumulates its partial
-    sum; the partials of a row are tree-summed with :func:`ec_add`.  The
-    kernel adds in another order than the reference's schedule, so its
-    projective coordinates differ from ``ops.msm_shared``'s; the group
-    element is the same.  A CPU tensor takes ``ops.msm_shared``."""
+    msm_shared``): one team of four lanes per chunk of terms, geometry from
+    :func:`straus_plan`; the chunks of a row fold in the kernel, and only
+    a row of more than 64 chunks leaves parts that :func:`sum_reduce`
+    adds with :func:`ec_add`.  The kernel adds in another order than the
+    reference's schedule, so its projective coordinates differ from
+    ``ops.msm_shared``'s; the group element is the same.  A CPU tensor
+    takes ``ops.msm_shared``."""
     if points.device.type == "cpu":
         return ops.msm_shared(points, digits)
     lib = _build.load()
@@ -618,22 +668,21 @@ def straus_msm(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor) -> tor
         raise ValueError(f"expected uint8 digits [{R}, {T}, 64], got {digits.dtype} {tuple(digits.shape)}")
     if digits.device != points.device:
         raise ValueError("points and digits on different devices")
-    if T == 0:
+    if R * T == 0:
         return ops.identity((R,), points.device).contiguous()
     points, digits = points.contiguous(), digits.contiguous()
-    chunk = msm_chunk(R, T)
-    nchunks = -(-T // chunk)
+    plan = straus_plan(R, T, straus_teams(ops, points.device))
     table = torch.empty(
         straus_table_bytes(ops, R, T) // 4, dtype=torch.int32, device=points.device
     )
-    partial = torch.empty((R, nchunks, ops.NCOORD, NLIMBS), dtype=torch.int32, device=points.device)
+    parts = torch.empty((R, plan.nparts, ops.NCOORD, NLIMBS), dtype=torch.int32, device=points.device)
     code = lib.zk_straus_msm(
-        ops.curve_id, R, T, chunk, points.data_ptr(), digits.data_ptr(),
-        table.data_ptr(), partial.data_ptr(), _stream(points),
+        ops.curve_id, R, T, plan.chunk, plan.group, plan.rows_per_block, points.data_ptr(),
+        digits.data_ptr(), table.data_ptr(), parts.data_ptr(), _stream(points),
     )
     _build.check(code, "zk_straus_msm")
     straus_msm.launches += 1
-    return sum_reduce(ops, partial, axis=1)
+    return sum_reduce(ops, parts, axis=1)
 
 
 straus_msm.launches = 0
@@ -740,8 +789,11 @@ def _table_rows(t: torch.Tensor, batch: torch.Size) -> tuple[torch.Tensor, int]:
     if tuple(t.shape[-3:]) != _P256_TABLE or t.dtype != torch.int32 or t.device.type != "cuda":
         raise ValueError(f"expected CUDA int32 [..., 16, 3, 9] tables, got {t.dtype} {tuple(t.shape)}")
     if t.shape[:-3].numel() == 1:
-        return t.reshape(_P256_TABLE).contiguous(), 0
-    return t.expand(batch + t.shape[-3:]).contiguous(), TABLE * 3 * NLIMBS
+        rows, stride = t.reshape(_P256_TABLE).contiguous(), 0
+    else:
+        rows, stride = t.expand(batch + t.shape[-3:]).contiguous(), TABLE * 3 * NLIMBS
+    # the kernel copies the tables in 16-byte pieces
+    return (rows if rows.data_ptr() % 16 == 0 else rows.clone()), stride
 
 
 def shamir(tp: torch.Tensor, dP: torch.Tensor, tq: torch.Tensor, dQ: torch.Tensor) -> torch.Tensor:

@@ -95,8 +95,9 @@ def resolve_device(device=None) -> torch.device:
 
 class DeviceParams:
     """Device-side precomputation for one SystemParametersList: the window
-    tables of the P-256 generator G and Pedersen base h, the comb table of
-    h, and the mixed-add comb tables of the Tom-256 Pedersen bases g and h.
+    table of the P-256 generator G, the comb table of the P-256 Pedersen
+    base h, and the mixed-add comb tables of the Tom-256 Pedersen bases g
+    and h.
     Construct via :func:`device_params_for` to share one instance per
     parameter set and device."""
 
@@ -104,7 +105,6 @@ class DeviceParams:
         self.params = params
         self.device = torch.device(device)
         self.tab_G = self._host_table(p256_ops, p256.generator())
-        self.tab_h_nist = self._host_table(p256_ops, params.nist_group.h)
         self.comb_h_nist = self._host_comb_weier(params.nist_group.h)
         self.comb_g_tom = self._host_comb_mixed(params.proof_group.g)
         self.comb_h_tom = self._host_comb_mixed(params.proof_group.h)
@@ -115,7 +115,6 @@ class DeviceParams:
         if self._tabs is None:
             self._tabs = {
                 "G": self.tab_G.to(self.device),
-                "h_n": self.tab_h_nist.to(self.device),
                 "h_n8": self.comb_h_nist.to(self.device),
                 "g_t8": self.comb_g_tom.to(self.device),
                 "h_t8": self.comb_h_tom.to(self.device),
@@ -235,19 +234,18 @@ def phase_a(tabs, pk, u1, u2, z1, s1, com_r, pkx_v, pkx_r, pky_v, pky_r,
     tab_pk = window_table(p256_ops, pk)
     R = shamir(tabs["G"], nibbles(u1), tab_pk, nibbles(u2))
     tab_R = window_table(p256_ops, R)
-    # comS1 = s1*R + com_r*h (pedersen.ts:53-58 with g := R) and
-    # Q = z1*G + 0*h (zkpAttestList.ts:133-136) as one Shamir call on
-    # [N, 2] rows (row 1's zero digits gather only identities)
+    # s1*R and Q = z1*G (zkpAttestList.ts:133-136) as one Shamir call on
+    # [N, 2] rows; its second digits are zero and gather only identities
     tp = torch.stack([tab_R, tabs["G"].expand_as(tab_R)], dim=1)  # [N, 2, 16, 3, 9]
-    d_com = nibbles(com_r)
     dP = torch.stack([nibbles(s1), nibbles(z1)], dim=1)
-    dQ = torch.stack([d_com, torch.zeros_like(d_com)], dim=1)
-    cq = shamir(tp, dP, tabs["h_n"], dQ)
-    comS1, Q = cq[:, 0], cq[:, 1]
-    # D = Q - comS1 + com_r*h: the per-instance constant of the even-round
-    # relation T1 = z*R + Q = T + D (see phase_b_flat)
+    sq = shamir(tp, dP, tabs["G"], torch.zeros_like(dP))
+    sR, Q = sq[:, 0], sq[:, 1]
+    # comS1 = s1*R + com_r*h (pedersen.ts:53-58 with g := R), and D = Q -
+    # comS1 + com_r*h = Q - s1*R: the per-instance constant of the
+    # even-round relation T1 = z*R + Q = T + D (see phase_b_flat)
     Hc = comb_weier(tabs["h_n8"], bytes_le(com_r))
-    D = ec_add(p256_ops, ec_add(p256_ops, Q, p256_ops.neg(comS1)), Hc)
+    comS1 = ec_add(p256_ops, sR, Hc)
+    D = ec_add(p256_ops, Q, p256_ops.neg(sR))
     # 80 rounds: T_i = alpha_i * R from a per-instance comb table, and
     # A_i = T_i + r_i * h (exp.ts:144-150)
     T = mul_comb4(comb4_table(R), nibbles(alpha))  # [N, 80, 3, 9]
