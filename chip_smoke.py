@@ -15,9 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    prover gives it and at the verifier's, and time both with CUDA events
    (``straus_msm`` at every shape of one verify and of path B, each with
    its schedule-independent bound and its launches per path; ``shamir``'s
-   two calls apart); the launches per prove at the checked shapes must add
-   up to the counts of phase 4a, and ``straus_msm``'s per verify to those
-   of phase 4b;
+   two calls apart; ``comb_mixed`` at its four calls under ``comb_plan``'s
+   geometry and under the other one); the launches per prove at the
+   checked shapes must add up to the counts of phase 4a, and
+   ``straus_msm``'s per verify to those of phase 4b;
 4a. the prover: ``BatchProver.prove`` on N=256 distinct instances at ring
    2^12 (instance i proves key i of the ring on tape SEED+100+i), one
    warm-up and three timed reps on the same tapes, each giving the same
@@ -237,7 +238,6 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     import torch
 
     from zkecdsa_tpu_torch.ops.curve_ops import (
-        comb_mixed,
         ec_add,
         p256_ops,
         straus_msm,
@@ -259,7 +259,7 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     )
 
     entries = {}
-    C_P, C_T = p256_ops.NCOORD, tom_ops.NCOORD
+    C_P = p256_ops.NCOORD
     pb = NLIMBS * 4  # bytes per field element
 
     # -- field_mul, plain form: FIELD_B rows per modulus, edge rows first --
@@ -407,23 +407,11 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     entries["straus_msm"] = recs
 
     # -- comb_mixed: the vphase commits, [N, S, 2] rows -------------------
-    tabs = torch.cat([dparams["g_t8"], dparams["h_t8"]], dim=0)
     d8 = torch.from_numpy(rs.randint(0, 256, size=(N, S, 2, 64)).astype(np.uint8)).to(dev)
     d8[0, 0, 0] = 0  # g*0 + h*0: the identity
-    got = comb_mixed(tabs, d8)
-    plain, plain_ms = _once_ms(lambda: tom_ops.mul_comb_mixed(tabs, d8))
-    err = _exact("comb_mixed", [(got, plain)])
-    if not bool(tom_ops.is_identity(got[0, 0, 0])):
-        raise AssertionError("comb_mixed: zero digits do not give the identity")
-    ms = _cuda_ms(lambda: comb_mixed(tabs, d8), 10)
-    rows = N * S * 2
-    bound, by = _bound(MM_EDW_MIXED * 64 * rows, tabs.numel() * 4 + d8.numel() + rows * C_T * pb)
-    entries["comb_mixed"] = dict(
-        call=f"Tom-256 g*v + h*r, [{N}, {S}, 2] rows (vphase commits)", launches_per_call=1,
-        launches_per_prove=0,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    _, entries["comb_mixed"] = _comb_mixed_case(
+        dparams["gh_t8"], d8, f"Tom-256 g*v + h*r, [{N}, {S}, 2] rows (vphase commits)", 10, log, 0
     )
-    log(f"comb_mixed [{N},{S},2]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
     return entries
 
 
@@ -451,6 +439,35 @@ def _case(name, call, kernel, plain, bound, reps, log, per_prove, per_call=1):
     b, by = bound
     return got, dict(call=call, launches_per_call=per_call, launches_per_prove=per_prove,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+
+def _comb_mixed_case(comb, d8, call, reps, log, per_prove):
+    """``comb_mixed`` on one call's digits d8 [..., 64], row 0 all zero:
+    under ``comb_plan``'s geometry (the path's) and under the other one
+    (forced with ``lanes``), each held exactly against the plain version
+    and timed; the kernel's result and one ``shapes`` record with the plan
+    and both times.  The bound counts 9 products a window (one mixed add),
+    the table read once, the digits and the outputs."""
+    from zkecdsa_tpu_torch.ops.curve_ops import comb_mixed, comb_plan, comb_resident, tom_ops
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+
+    B = d8.shape[:-1].numel()
+    bound = _bound(MM_EDW_MIXED * 64 * B, comb.mont.numel() * 4 + d8.numel() + B * 4 * NLIMBS * 4)
+    got, rec = _case("comb_mixed", call, lambda: comb_mixed(comb, d8),
+                     lambda: tom_ops.mul_comb_mixed(comb.canon, d8), bound, reps, log, per_prove)
+    if not bool(tom_ops.is_identity(got.view(-1, 4, NLIMBS)[0])):
+        raise AssertionError("comb_mixed: zero digits do not give the identity")
+    resident = comb_resident(d8.device)
+    plan = comb_plan(B, resident)
+    other = 1 if plan.lanes == 4 else 4
+    # the other geometry against the plan's result, which equals the plain one
+    err = _exact(f"comb_mixed {call} lanes={other}", [(comb_mixed(comb, d8, lanes=other), got)])
+    ms_other = _cuda_ms(lambda: comb_mixed(comb, d8, lanes=other), reps)
+    rec.update(max_abs_err=max(rec["max_abs_err"], err), other_lanes=other, ms_other=ms_other,
+               plan=dict(dataclasses.asdict(plan), resident_rows=resident))
+    log(f"comb_mixed {call}: plan {rec['plan']}: {rec['ms']:.4f} ms; {other} lanes a row: "
+        f"{ms_other:.4f} ms, exact; bound {bound[0]:.4f} ms")
+    return got, rec
 
 
 def _affine_bound(ops, B: int):
@@ -485,7 +502,6 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     from zkecdsa_tpu_torch.ops.curve_ops import (
         comb4_bases,
         comb4_entries,
-        comb_mixed,
         comb_weier,
         ec_add,
         mul_comb4,
@@ -561,6 +577,9 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
         lambda: comb4_bases(P), lambda: ops.comb4_bases(P),
         _bound(N * 63 * 4 * MM_WEIER_DBL, N * pt_b + N * 64 * pt_b), 5, 1,
     )
+    # its geometry (csrc/comb4.cu): a team of four lanes a base, 8 bases to
+    # a one-warp block
+    shapes["comb4_bases"][-1]["plan"] = dict(lanes=4, rows_per_block=8, blocks=-(-N // 8))
     tab4 = case(
         "comb4_entries", f"P-256 [{N}, 64] position bases -> [{N}, 64, 16, 3, 9]",
         lambda: comb4_entries(bases), lambda: ops.comb4_entries(bases),
@@ -626,19 +645,11 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
         raise AssertionError("chord disagrees with Python integers")
 
     # -- Tom-256 commitments: phase A [N, 162], phase B [K, 34], GK [N*4n] --
-    tabs = torch.cat([dparams["g_t8"], dparams["h_t8"]], dim=0)
-    C_T = tom_ops.NCOORD
-
     def commits(call, batch):
         d8 = u8(*batch, 64, hi=256)
         d8.view(-1, 64)[0] = 0  # g*0 + h*0: the identity
-        B = d8.shape[:-1].numel()
-        out = case("comb_mixed", call, lambda: comb_mixed(tabs, d8),
-                   lambda: tom_ops.mul_comb_mixed(tabs, d8),
-                   _bound(MM_EDW_MIXED * 64 * B, tabs.numel() * 4 + d8.numel() + B * C_T * pb),
-                   3, 1)
-        if not bool(tom_ops.is_identity(out.view(-1, C_T, NLIMBS)[0])):
-            raise AssertionError("comb_mixed: zero digits do not give the identity")
+        out, rec = _comb_mixed_case(dparams["gh_t8"], d8, call, 3, log, 1)
+        shapes.setdefault("comb_mixed", []).append(rec)
         return out
 
     allC = commits(f"Tom-256 [{N}, 162] (phase A commits)", (N, 162))

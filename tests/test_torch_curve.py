@@ -149,7 +149,7 @@ def test_comb_mixed_vs_double_mul_comb_mixed(params):
     d8 = torch.from_numpy(
         np.concatenate([tcurve.byte_digits(v), tcurve.byte_digits(r)], axis=1).astype(np.uint8)
     )
-    got = tcurve.comb_mixed(torch.cat([ttabs["g_t8"], ttabs["h_t8"]]), d8)
+    got = tcurve.comb_mixed(ttabs["gh_t8"], d8)
     ref = jcurve.tom_ops.double_mul_comb_mixed(
         jtabs["g_t8"], jnp.asarray(jcurve.byte_digits(v)),
         jtabs["h_t8"], jnp.asarray(jcurve.byte_digits(r)),
@@ -168,8 +168,11 @@ def test_tables_carry_across(params):
     it is compared on affine points, its identity entries included."""
     jparams, tparams, jtabs, ttabs = params
     carried = carry.tables_from_jax({k: np.asarray(v) for k, v in jtabs.items()})
-    assert set(ttabs) <= set(carried)
-    for key, t in ttabs.items():
+    # every table tensor, and gh_t8, the holder of the Tom-256 tables, whose
+    # canonical halves are g_t8 and h_t8 (test_mixed_comb_forms)
+    tensors = {k: t for k, t in ttabs.items() if k != "gh_t8"}
+    assert set(tensors) <= set(carried)
+    for key, t in tensors.items():
         assert carried[key].dtype == torch.int32
         if key != "h_n8":
             assert torch.equal(carried[key], t), key
@@ -190,6 +193,21 @@ def test_tables_carry_across(params):
         else:
             zinv = pow(Z, -1, p)
             assert (X * zinv % p, Y * zinv % p, z) == (x, y, 1)
+
+
+def test_mixed_comb_forms(params):
+    """The Tom-256 comb tables the kernel reads are x * 2^288 mod p of the
+    canonical ones, entry for entry, and the canonical tables are the
+    reference's g_t8 then h_t8, carried across."""
+    _, _, jtabs, ttabs = params
+    gh = ttabs["gh_t8"]
+    f = tcurve.tom_ops.f
+    assert gh.canon.shape == gh.mont.shape == (64, 256, 5, 9)
+    R = 1 << 288
+    assert f.unpack(gh.mont) == [x * R % f.p for x in f.unpack(gh.canon)]
+    carried = carry.tables_from_jax({k: np.asarray(jtabs[k]) for k in ("g_t8", "h_t8")})
+    assert torch.equal(gh.canon, torch.cat([carried["g_t8"], carried["h_t8"]]))
+    assert torch.equal(ttabs["g_t8"], gh.canon[:32]) and torch.equal(ttabs["h_t8"], gh.canon[32:])
 
 
 def _nib(scs):

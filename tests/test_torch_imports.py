@@ -126,7 +126,7 @@ _CALLS = {
         tcurve.p256_ops, _meta((1, 4, 3, 9)), _meta((1, 4, 64), torch.uint8)
     ),
     "comb_mixed": lambda: tcurve.comb_mixed(
-        _meta((64, 256, 5, 9)), _meta((2, 64), torch.uint8)
+        tcurve.MixedComb(_meta((64, 256, 5, 9)), _meta((64, 256, 5, 9))), _meta((2, 64), torch.uint8)
     ),
     "shamir": lambda: tcurve.shamir(
         _meta((16, 3, 9)), _meta((2, 64), torch.uint8), _meta((2, 16, 3, 9)), _meta((2, 64), torch.uint8)

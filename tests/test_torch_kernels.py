@@ -65,8 +65,7 @@ def _edge_pairs(g, rs, n):
 def tables():
     with trng.deterministic(31):
         params = generate_params_list()
-    tabs = DeviceParams(params, "cpu").tabs()
-    return torch.cat([tabs["g_t8"], tabs["h_t8"]])
+    return DeviceParams(params, "cpu").tabs()["gh_t8"]
 
 
 @pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
@@ -138,6 +137,34 @@ def test_straus_plan(ops, R, T, sms):
     assert plan.chunk == 1 or teams <= max(R, resident)
 
 
+# comb_mixed's rows at the main path's calls: vphase [256, 20, 2], phase A
+# [256, 162], phase B [10240, 34], GK [12288]; then one row
+COMB_ROWS = [256 * 20 * 2, 256 * 162, 10240 * 34, 12288, 1]
+
+# warps of the one-lane comb_mixed kernel an SM holds (the occupancy of
+# ptxas' sm_90a registers: 96, five blocks of four warps)
+COMB_RESIDENT_WARPS = 20
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+@pytest.mark.parametrize("B", COMB_ROWS)
+def test_comb_plan(B, sms):
+    """Every row in exactly one block; a team of four a row where the rows,
+    one lane each, leave the card under-filled (the vphase, phase A, GK
+    calls and one row), one lane a row where they fill it several times
+    (phase B); the keyword forces either geometry."""
+    resident = sms * COMB_RESIDENT_WARPS * 32
+    plan = tcurve.comb_plan(B, resident)
+    assert plan.lanes == (4 if B < resident else 1)
+    assert plan.lanes == (1 if B == 10240 * 34 else 4)
+    for lanes in (1, 4):
+        forced = tcurve.comb_plan(B, resident, lanes)
+        assert forced.lanes == lanes and forced.rows_per_block * lanes == 128
+        assert (forced.blocks - 1) * forced.rows_per_block < B <= forced.blocks * forced.rows_per_block
+    with pytest.raises(ValueError):
+        tcurve.comb_plan(B, resident, 2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
 def test_field_mul_kernel_vs_plain(f, cuda):
@@ -186,8 +213,29 @@ def test_comb_mixed_kernel_vs_plain(tables, cuda):
     d8[0] = 0
     d8 = d8.to(cuda)
     got = tcurve.comb_mixed(tabs, d8)
-    assert torch.equal(got, tcurve.tom_ops.mul_comb_mixed(tabs, d8))
+    assert torch.equal(got, tcurve.tom_ops.mul_comb_mixed(tabs.canon, d8))
     assert bool(tcurve.tom_ops.is_identity(got[0]))
+    # digits that do not start on 16 bytes (the kernel's loads) are copied
+    shifted = torch.empty(64 * 64 + 8, dtype=torch.uint8, device=cuda)[8:].view(64, 64)
+    shifted.copy_(d8)
+    assert torch.equal(tcurve.comb_mixed(tabs, shifted), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 33, 129])
+@pytest.mark.parametrize("lanes", [1, 4], ids=["lane", "team"])
+def test_comb_mixed_geometries(tables, lanes, B, cuda):
+    """Both geometries, forced, on ragged row counts (one row, a few, a
+    team block plus one, a lane block plus one) with an all-zero row,
+    bit for bit against the plain version."""
+    tabs = tables.to(cuda)
+    d8 = torch.from_numpy(np.random.RandomState(72 + B).randint(0, 256, size=(B, 64)).astype(np.uint8))
+    d8[B // 2] = 0
+    d8 = d8.to(cuda)
+    got = tcurve.comb_mixed(tabs, d8, lanes=lanes)
+    assert torch.equal(got, tcurve.tom_ops.mul_comb_mixed(tabs.canon, d8))
+    assert bool(tcurve.tom_ops.is_identity(got[B // 2]))
     torch.cuda.synchronize()
 
 
@@ -313,6 +361,18 @@ def test_comb4_kernels_vs_plain(cuda):
     got = tcurve.mul_comb4(tab, dig)
     assert torch.equal(got, ops.mul_comb4(tab, dig))
     assert bool(ops.is_identity(got[0, 0]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 9, 33])
+def test_comb4_bases_ragged(R, cuda):
+    """A team per base, 8 to a block: one base, a block plus one, four
+    blocks plus one, bit for bit against the plain version."""
+    rs = np.random.RandomState(100 + R)
+    ops, g = tcurve.p256_ops, p256
+    P = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(R)], cuda)
+    assert torch.equal(tcurve.comb4_bases(P), ops.comb4_bases(P))
     torch.cuda.synchronize()
 
 

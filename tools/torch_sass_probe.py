@@ -9,8 +9,9 @@ Run from the repository root, on a machine with ``nvcc`` and ``cuobjdump``:
 It builds the kernel library where it is missing or stale
 (``_build.load``), then
 
-* copies ptxas' lines (registers, stack, spills) of the ``shamir`` and
-  ``straus`` kernels from ``nvcc.log``;
+* copies ptxas' lines (registers, stack, spills) of the ``shamir``,
+  ``straus``, ``comb_mixed`` and ``comb4_bases`` kernels from
+  ``nvcc.log``;
 * dumps their SASS and counts local-memory instructions (``LDL``/``STL``)
   and the instructions by opcode;
 * compiles probe kernels that run exactly one ``fe_mont_mul``, one
@@ -20,7 +21,7 @@ It builds the kernel library where it is missing or stale
   on a chain; ``probe_mont_mul_ptx`` is the same product with its rows as
   PTX ``mad.lo.cc``/``madc.hi.cc`` carry chains, for comparison.
 
-The full SASS of every instantiation of both kernels goes to ``out_dir``
+The full SASS of every instantiation of these kernels goes to ``out_dir``
 (default ``build/sass``), one file a mangled name; the counts are printed.
 """
 
@@ -38,7 +39,7 @@ sys.path.insert(0, str(ROOT))
 
 from zkecdsa_tpu_torch import _build  # noqa: E402
 
-KERNELS = ("shamir_kernel", "straus_kernel")
+KERNELS = ("shamir_kernel", "straus_kernel", "comb_mixed_kernel", "comb4_bases_kernel")
 _SKIP = {"LDG", "STG", "LDC", "EXIT", "BRA", "NOP", "S2R", "ULDC", "MOV", "RET"}
 
 PROBE = r"""

@@ -45,7 +45,8 @@ _SIGNATURES = {
     "zk_to_affine": [_I, _L, _P, _P, _P, _P, _P],
     "zk_straus_msm": [_I, _L, _L, _I, _I, _I, _P, _P, _P, _P, _P],
     "zk_straus_resident_warps": [_I, _P],
-    "zk_comb_mixed": [_L, _P, _P, _P, _P],
+    "zk_comb_mixed": [_L, _I, _P, _P, _P, _P],
+    "zk_comb_mixed_resident_warps": [_P],
     "zk_comb_weier": [_L, _P, _P, _P, _P],
     "zk_shamir": [_L, _P, _L, _P, _P, _L, _P, _P, _P],
     "zk_comb4_bases": [_L, _P, _P, _P],

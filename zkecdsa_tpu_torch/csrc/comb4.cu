@@ -8,8 +8,10 @@
 // entries:
 //
 // zk_comb4_bases: bases [R, 3, 9] -> position bases [R, 64, 3, 9], entry j
-// = 16^(63-j) * base: a serial chain of 63 runs of four doublings, one
-// thread per base.
+// = 16^(63-j) * base: a serial chain of 63 runs of four doublings, a team
+// of four lanes per base (curve.cuh team_dbl: 4 rounds a doubling instead
+// of 13 products), 8 bases to a one-warp block; lane q converts and stores
+// coordinate q of each position base.
 //
 // zk_comb4_entries: position bases [R, 64, 3, 9] -> tables [R, 64, 16, 3,
 // 9]: one thread per (base, position) builds the 16 entries by doubling the
@@ -23,10 +25,12 @@
 // (ops/curve_ops.py), so the projective results are the same integers.
 //
 // Bound on the H100: 32-bit integer multiply-adds.  The bases are 252
-// doublings per base in one dependent chain (latency-bound: 256 threads at
-// N=256); the entries are 3 doublings and 14 adds per (base, position);
-// the multiply is 64 adds per scalar (N*80 threads) reading 64 scattered
-// 108-byte entries of a 110 KB per-base table, which L2 holds.
+// doublings per base in one dependent chain (latency-bound: 256 chains at
+// N=256 on a card of 132 SMs, so the team cuts the chain, 1,008 rounds of
+// one product instead of 3,276 products); the entries are 3 doublings and
+// 14 adds per (base, position); the multiply is 64 adds per scalar (N*80
+// threads) reading 64 scattered 108-byte entries of a 110 KB per-base
+// table, which L2 holds.
 
 #include <cuda_runtime.h>
 
@@ -38,21 +42,23 @@ constexpr int CID = ZK_CURVE_P256;
 constexpr int PT = 3 * ZK_NL;                 // limbs per point
 constexpr long long TAB = 64LL * 16 * PT;     // limbs per base's table
 
-__global__ void comb4_bases_kernel(long long R, const uint32_t* __restrict__ P,
-                                   uint32_t* __restrict__ bases) {
-    const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= R) return;
+constexpr int BASES = 8;  // bases (teams) per one-warp block
+
+__global__ void __launch_bounds__(BASES * ZK_TEAM) comb4_bases_kernel(
+    long long R, const uint32_t* __restrict__ P, uint32_t* __restrict__ bases) {
+    const long long r0 = (long long)blockIdx.x * BASES + threadIdx.x / ZK_TEAM;
+    // a team past R runs base R-1 and stores nothing
+    const bool live = r0 < R;
+    const long long r = live ? r0 : R - 1;
     uint32_t* t = bases + r * 64 * PT;
-    Pt<CID> b, tmp;
-    pt_load<CID>(b, P + r * PT);
-    pt_store<CID>(t + 63 * PT, b);
+    Pt<CID> b;
+    team_to_mont<CID>(b, P + r * PT);
+    team_store<CID>(t + 63 * PT, b, live);
+#pragma unroll 1
     for (int k = 1; k < 64; ++k) {
 #pragma unroll 1
-        for (int s = 0; s < 4; ++s) {
-            pt_dbl<CID>(tmp, b);
-            b = tmp;
-        }
-        pt_store<CID>(t + (63 - k) * PT, b);
+        for (int s = 0; s < 4; ++s) team_dbl<CID>(b, b);
+        team_store<CID>(t + (63 - k) * PT, b, live);
     }
 }
 
@@ -97,7 +103,7 @@ unsigned grid_for(long long n, int threads) { return (unsigned)((n + threads - 1
 
 extern "C" int zk_comb4_bases(long long R, const void* P, void* bases, void* stream) {
     if (R == 0) return 0;
-    comb4_bases_kernel<<<grid_for(R, 32), 32, 0, (cudaStream_t)stream>>>(
+    comb4_bases_kernel<<<grid_for(R, BASES), BASES * ZK_TEAM, 0, (cudaStream_t)stream>>>(
         R, (const uint32_t*)P, (uint32_t*)bases);
     return (int)cudaGetLastError();
 }

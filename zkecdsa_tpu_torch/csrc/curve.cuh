@@ -270,7 +270,7 @@ __device__ __forceinline__ void pt_dbl(Pt<CID>& r, const Pt<CID>& P) {
 // formulas' (every field operation returns the canonical residue), so a
 // team's result is bit for bit the per-thread one's.  Rounds on the chain,
 // per-thread products -> team rounds: RCB add 14 -> 5, RCB dbl 13 -> 4,
-// HWCD add 11 -> 3, HWCD dbl 9 -> 3.
+// HWCD add 11 -> 3, HWCD dbl 9 -> 3, HWCD mixed add 9 -> 3.
 //
 // The result may alias an operand: the operands are read only before the
 // result is written.  Every lane of the warp must call a team routine at
@@ -468,6 +468,34 @@ __device__ __forceinline__ void team_edw_dbl(Pt<CID>& r, const Pt<CID>& P) {
     fe_add(G, D, B, M);
     fe_sub(F, G, C, M);
     fe_sub(H, D, B, M);
+    // E F, G H, E H, F G
+    fe_pick(x, q, E, G, E, F);
+    fe_pick(y, q, F, H, H, G);
+    team_mul4(r.c[0], r.c[1], r.c[2], r.c[3], x, y, M);
+}
+
+// HWCD08 mixed addition against one comb-table entry (X2, Y2, X2+Y2,
+// d*T2, a*X2), Montgomery form (edw_add_mixed's values in 3 rounds; the
+// second round's one product runs on every lane and does not wait on the
+// first).  Lane q holds row q of the entry in `tq` (q < 4), every lane
+// holds a*X2 in `tax`.
+__device__ __forceinline__ void team_edw_add_mixed(Pt<ZK_CURVE_TOM>& r,
+                                                   const Pt<ZK_CURVE_TOM>& P, const Fe tq,
+                                                   const Fe tax) {
+    const ZkModulus& M = curve_mod<ZK_CURVE_TOM>();
+    const int q = team_lane();
+    Fe x, y, A, B, S, C, xa, E, F, G, H;
+    // X1 X2, Y1 Y2, (X1+Y1)(X2+Y2), T1 d*T2
+    fe_add(x, P.c[0], P.c[1], M);
+    fe_pick(x, q, P.c[0], P.c[1], x, P.c[2]);
+    team_mul4(A, B, S, C, x, tq, M);
+    // X1 a*X2
+    fe_mont_mul(xa, P.c[0], tax, M);
+    fe_sub(E, S, A, M);
+    fe_sub(E, E, B, M);
+    fe_sub(F, P.c[3], C, M);
+    fe_add(G, P.c[3], C, M);
+    fe_sub(H, B, xa, M);
     // E F, G H, E H, F G
     fe_pick(x, q, E, G, E, F);
     fe_pick(y, q, F, H, H, G);

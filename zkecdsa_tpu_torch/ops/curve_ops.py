@@ -49,6 +49,10 @@ __all__ = [
     "straus_plan",
     "straus_teams",
     "comb_mixed",
+    "comb_plan",
+    "comb_resident",
+    "CombPlan",
+    "MixedComb",
     "sum_reduce",
     "window_table",
     "shamir",
@@ -593,22 +597,29 @@ _FOLD_TEAMS = 64  # teams of one block, folded in shared memory (msm.cu MAX_TEAM
 
 
 @functools.lru_cache(maxsize=None)
-def _straus_teams(curve_id: int, index: int) -> int:
+def _resident_warps(entry: str, index: int, *args) -> int:
+    """Warps of one kernel that CUDA device ``index`` holds at once: its
+    SMs times the warps an SM holds, which the C entry ``entry`` reads
+    from the occupancy calculator (the kernel's registers and shared
+    memory)."""
     lib = _build.load()
     warps = ctypes.c_int()
     with torch.cuda.device(index):
-        code = lib.zk_straus_resident_warps(curve_id, ctypes.byref(warps))
-    _build.check(code, "zk_straus_resident_warps")
-    return torch.cuda.get_device_properties(index).multi_processor_count * warps.value * 8
+        code = getattr(lib, entry)(*args, ctypes.byref(warps))
+    _build.check(code, entry)
+    return torch.cuda.get_device_properties(index).multi_processor_count * warps.value
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
 
 
 def straus_teams(ops: CurveOps, device) -> int:
     """Teams of four lanes that :func:`straus_msm`'s kernel keeps resident
-    on a CUDA device at once: its SMs times the one-warp blocks of the
-    kernel an SM holds (the occupancy calculator's count from the kernel's
-    registers and shared memory), eight teams a warp."""
-    device = torch.device(device)
-    return _straus_teams(ops.curve_id, torch.cuda.current_device() if device.index is None else device.index)
+    on a CUDA device at once: the one-warp blocks of the kernel the card
+    holds, eight teams a warp."""
+    return _resident_warps("zk_straus_resident_warps", _index(device), ops.curve_id) * 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -735,15 +746,78 @@ def msm_ladder(ops: CurveOps, points: torch.Tensor, bits: torch.Tensor) -> torch
 msm_ladder.launches = 0
 
 
-def comb_mixed(tabs: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
-    """g*v + h*r on Tom-256: concatenated mixed comb tables [64, 256, 5, 9]
-    and LSB-first byte digits [..., 64] (uint8; v's 32 then r's 32) ->
-    [..., 4, 9].  Kernel ``csrc/comb.cu`` (replaces ``curve_ops.py:731
-    double_mul_comb_mixed``).  A CPU tensor takes
-    ``tom_ops.mul_comb_mixed``."""
+@dataclasses.dataclass(frozen=True)
+class MixedComb:
+    """The Tom-256 mixed-add comb tables of g then h, [64, 256, 5, 9]
+    (entry [j][d] = the rows X, Y, X+Y, d*T, a*X of d * 2^(8j) * base,
+    windows 0..31 of g, then 0..31 of h), in two forms of the same
+    values: ``canon``, canonical standard form (the plain version's and
+    the reference's, ``carry.py``), and ``mont``, x * 2^288 mod p (the
+    kernel's Montgomery form, so it converts no entry).  Built once per
+    parameter set on the host (``protocol.batch.DeviceParams``)."""
+
+    canon: torch.Tensor
+    mont: torch.Tensor
+
+    @classmethod
+    def pack(cls, values) -> "MixedComb":
+        """Flat Python ints, in the table's order, -> both forms (CPU)."""
+        f, shape = tom_ops.f, (-1, 256, EdwardsOps.MIXED_NC, NLIMBS)
+        return cls(f.pack(values).reshape(shape), f.pack_mont(values).reshape(shape))
+
+    def to(self, device) -> "MixedComb":
+        return MixedComb(self.canon.to(device), self.mont.to(device))
+
+
+_COMB_THREADS = 128  # threads of a comb_mixed block (csrc/comb.cu COMB_THREADS)
+
+
+def comb_resident(device) -> int:
+    """Rows that :func:`comb_mixed`'s one-lane kernel keeps resident on a
+    CUDA device at once: the warps of the kernel the card holds, 32 rows
+    a warp."""
+    return _resident_warps("zk_comb_mixed_resident_warps", _index(device)) * 32
+
+
+@dataclasses.dataclass(frozen=True)
+class CombPlan:
+    """Launch geometry of :func:`comb_mixed` for B rows: ``lanes`` lanes a
+    row (4, a team, or 1), ``rows_per_block`` rows in each of ``blocks``
+    blocks of 128 threads."""
+
+    lanes: int
+    rows_per_block: int
+    blocks: int
+
+
+def comb_plan(B: int, resident: int, lanes: int | None = None) -> CombPlan:
+    """A team of four lanes a row when the B rows, one lane each, leave
+    the card under-filled (B < ``resident``, :func:`comb_resident`): a
+    row's chain is then the call's time, and the team runs a window in 3
+    rounds instead of 9 products.  One lane a row when the rows fill the
+    card: there the instruction count sets the time, and the team's
+    exchanges and its every-lane product cost more than its shorter chain
+    saves.  ``lanes`` forces the geometry (tests and chip_smoke.py)."""
+    if lanes is None:
+        lanes = 4 if B < resident else 1
+    if lanes not in (1, 4):
+        raise ValueError(f"comb_mixed runs 1 or 4 lanes a row, not {lanes}")
+    rows = _COMB_THREADS // lanes
+    return CombPlan(lanes, rows, -(-B // rows))
+
+
+def comb_mixed(comb: MixedComb, d8: torch.Tensor, lanes: int | None = None) -> torch.Tensor:
+    """g*v + h*r on Tom-256: the comb tables of g then h and LSB-first byte
+    digits [..., 64] (uint8; v's 32 then r's 32) -> [..., 4, 9] canonical.
+    Kernel ``csrc/comb.cu`` (replaces ``curve_ops.py:731
+    double_mul_comb_mixed``) on ``comb.mont``, the tables in Montgomery
+    form, geometry from :func:`comb_plan` (``lanes`` forces it; tests and
+    chip_smoke.py only); the output is canonical standard form.  A CPU
+    tensor takes ``tom_ops.mul_comb_mixed`` on ``comb.canon``."""
     if d8.device.type == "cpu":
-        return tom_ops.mul_comb_mixed(tabs, d8)
+        return tom_ops.mul_comb_mixed(comb.canon, d8)
     lib = _build.load()
+    tabs = comb.mont
     if tuple(tabs.shape) != (64, 256, EdwardsOps.MIXED_NC, NLIMBS) or tabs.dtype != torch.int32:
         raise ValueError(f"expected int32 [64, 256, 5, 9] tables, got {tabs.dtype} {tuple(tabs.shape)}")
     if d8.dtype != torch.uint8 or d8.shape[-1] != 64:
@@ -751,10 +825,13 @@ def comb_mixed(tabs: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
     if tabs.device != d8.device or d8.device.type != "cuda":
         raise ValueError("comb_mixed operands must be on one CUDA device")
     tabs, d8 = tabs.contiguous(), d8.contiguous()
+    if d8.data_ptr() % 16:  # the kernel loads a row's digits 16 bytes at a time
+        d8 = d8.clone()
     batch = d8.shape[:-1]
     out = torch.empty(batch + (4, NLIMBS), dtype=torch.int32, device=d8.device)
-    B = out.numel() // (4 * NLIMBS)
-    code = lib.zk_comb_mixed(B, tabs.data_ptr(), d8.data_ptr(), out.data_ptr(), _stream(d8))
+    B = batch.numel()
+    plan = comb_plan(B, comb_resident(d8.device), lanes)
+    code = lib.zk_comb_mixed(B, plan.lanes, tabs.data_ptr(), d8.data_ptr(), out.data_ptr(), _stream(d8))
     _build.check(code, "zk_comb_mixed")
     comb_mixed.launches += 1
     return out
@@ -837,9 +914,9 @@ def comb4_table(P: torch.Tensor) -> torch.Tensor:
 
 def comb4_bases(P: torch.Tensor) -> torch.Tensor:
     """The position bases of :func:`comb4_table`: [..., 3, 9] -> [..., 64,
-    3, 9], entry j = 16^(63-j) * P.  Kernel ``csrc/comb4.cu``: one thread
-    per base runs the serial chain of 252 doublings in the plain version's
-    order.  A CPU tensor takes ``p256_ops.comb4_bases``."""
+    3, 9], entry j = 16^(63-j) * P.  Kernel ``csrc/comb4.cu``: a team of
+    four lanes per base runs the serial chain of 252 doublings in the
+    plain version's order.  A CPU tensor takes ``p256_ops.comb4_bases``."""
     if P.device.type == "cpu":
         return p256_ops.comb4_bases(P)
     lib = _build.load()

@@ -9,7 +9,11 @@ element is nine little-endian 32-bit limbs in an ``int32`` tensor
 [0, p), in standard (not Montgomery) form.  Nine limbs because the Tom-256
 base prime is 258 bits.  Canonical limbs make the 4-bit window digits and
 the comb's byte digits a reinterpretation of the limbs (:func:`bytes_le`),
-not a computation.
+not a computation.  One exception: a constant table built once per
+parameter set may also be held in the kernels' Montgomery form
+(:meth:`FieldT.pack_mont`), so that a kernel reads it without converting
+it on every call; the wrapper that takes it says which form each side
+holds.
 
 The kernels (``csrc/field.cuh``) compute in Montgomery form inside a
 thread.  The plain PyTorch versions here compute the same functions in
@@ -116,6 +120,13 @@ class FieldT:
         buf = b"".join((int(v) % p).to_bytes(4 * NLIMBS, "little") for v in values)
         arr = np.frombuffer(buf, dtype="<i4").reshape(len(values), NLIMBS)
         return torch.from_numpy(arr.astype(np.int32)).to(device or "cpu")
+
+    def pack_mont(self, values, device=None) -> torch.Tensor:
+        """Python ints -> [N, 9] limbs of x * 2^288 mod p: the Montgomery
+        form of the kernels (csrc/field.cuh), for constant tables that a
+        kernel reads as they stand."""
+        R = 1 << (32 * NLIMBS)
+        return self.pack([int(v) * R for v in values], device)
 
     def unpack(self, t: torch.Tensor) -> list[int]:
         """Canonical [..., 9] limbs -> Python ints (flattened leading dims)."""

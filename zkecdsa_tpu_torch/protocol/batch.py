@@ -48,6 +48,7 @@ from ..curves.weier import WeierstrassPoint
 from ..exp.exp import ExpProof
 from ..exp.pointAdd import PointAddProof
 from ..ops.curve_ops import (
+    MixedComb,
     comb4_table,
     comb_mixed,
     comb_weier,
@@ -97,7 +98,7 @@ class DeviceParams:
     """Device-side precomputation for one SystemParametersList: the window
     table of the P-256 generator G, the comb table of the P-256 Pedersen
     base h, and the mixed-add comb tables of the Tom-256 Pedersen bases g
-    and h.
+    and h (one :class:`MixedComb`, canonical and Montgomery form).
     Construct via :func:`device_params_for` to share one instance per
     parameter set and device."""
 
@@ -106,18 +107,24 @@ class DeviceParams:
         self.device = torch.device(device)
         self.tab_G = self._host_table(p256_ops, p256.generator())
         self.comb_h_nist = self._host_comb_weier(params.nist_group.h)
-        self.comb_g_tom = self._host_comb_mixed(params.proof_group.g)
-        self.comb_h_tom = self._host_comb_mixed(params.proof_group.h)
-        self._tabs: dict[str, torch.Tensor] | None = None
+        self.comb_gh_tom = MixedComb.pack(
+            self._host_comb_mixed(params.proof_group.g)
+            + self._host_comb_mixed(params.proof_group.h)
+        )
+        self._tabs: dict[str, torch.Tensor | MixedComb] | None = None
 
-    def tabs(self) -> dict[str, torch.Tensor]:
-        """The tables the phases take, on the device (uploaded once)."""
+    def tabs(self) -> dict[str, torch.Tensor | MixedComb]:
+        """The tables the phases take, on the device (uploaded once):
+        ``gh_t8`` is the :class:`MixedComb` that ``comb_mixed`` takes;
+        ``g_t8`` and ``h_t8`` are views of its canonical halves."""
         if self._tabs is None:
+            gh = self.comb_gh_tom.to(self.device)
             self._tabs = {
                 "G": self.tab_G.to(self.device),
                 "h_n8": self.comb_h_nist.to(self.device),
-                "g_t8": self.comb_g_tom.to(self.device),
-                "h_t8": self.comb_h_tom.to(self.device),
+                "gh_t8": gh,
+                "g_t8": gh.canon[:COMB_WINDOWS],
+                "h_t8": gh.canon[COMB_WINDOWS:],
             }
         return self._tabs
 
@@ -149,10 +156,10 @@ class DeviceParams:
         return p256_ops.f.pack(coords).reshape(COMB_WINDOWS, COMB_ENTRIES, 3, -1)
 
     @staticmethod
-    def _host_comb_mixed(base) -> torch.Tensor:
-        """[32, 256, 5, 9] mixed-add comb table: entry [j][d] holds the
-        rows (x, y, x+y, d*x*y, a*x) of the affine point d * 2^(8j) * base;
-        d = 0 is the affine identity (0, 1)."""
+    def _host_comb_mixed(base) -> list[int]:
+        """The [32, 256, 5] mixed-add comb table, flat: entry [j][d] holds
+        the rows (x, y, x+y, d*x*y, a*x) of the affine point d * 2^(8j) *
+        base; d = 0 is the affine identity (0, 1)."""
         p = tomEdwards256.p
         rows: list[list[int]] = []
         bj = base
@@ -165,9 +172,7 @@ class DeviceParams:
                 rows.append(tom_ops.comb_rows(pt.x * zinv % p, pt.y * zinv % p))
             for _ in range(8):
                 bj = bj.dbl()
-        f = tom_ops.f
-        flat = f.pack([v for r in rows for v in r])
-        return flat.reshape(COMB_WINDOWS, COMB_ENTRIES, tom_ops.MIXED_NC, -1)
+        return [v for r in rows for v in r]
 
 
 @functools.lru_cache(maxsize=8)
@@ -210,11 +215,6 @@ def nibbles(x: torch.Tensor) -> torch.Tensor:
     [..., 64] uint8 (a reinterpretation of the limbs' bytes)."""
     b = bytes_le(x).flip(-1)
     return torch.stack([b >> 4, b & 15], dim=-1).flatten(-2)
-
-
-def _gh_t8(tabs) -> torch.Tensor:
-    """The Tom-256 comb tables of g then h, as ``comb_mixed`` takes them."""
-    return torch.cat([tabs["g_t8"], tabs["h_t8"]], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +265,7 @@ def phase_a(tabs, pk, u1, u2, z1, s1, com_r, pkx_v, pkx_r, pky_v, pky_r,
         [torch.stack([pkx_r, pky_r], dim=1),
          torch.stack([txr, tyr], dim=2).reshape(N, 2 * SECPARAM, -1)], dim=1,
     )
-    allC = comb_mixed(_gh_t8(tabs), torch.cat([bytes_le(vals), bytes_le(blinds)], dim=-1))
+    allC = comb_mixed(tabs["gh_t8"], torch.cat([bytes_le(vals), bytes_le(blinds)], dim=-1))
     tcx, tcy, _ = to_affine(tom_ops, allC)  # [N, 162, 9]
     return {
         "T": T, "D": D,
@@ -324,7 +324,7 @@ def phase_b_flat(tabs, T, D, TxC, TyC, pkX, pkY, Tx_v, pkx_v, pky_v, pky_r,
     fills = torch.stack([t1x, t1y, ints[:, 1], ints[:, 3], ints[:, 4], ints[:, 6]], dim=1)
     vals = torch.cat([fills, com_vals[:, 6:], ext_vals], dim=1)
     blinds = torch.cat([com_blinds, ext_blinds], dim=1)
-    commits = comb_mixed(_gh_t8(tabs), torch.cat([bytes_le(vals), bytes_le(blinds)], dim=-1))
+    commits = comb_mixed(tabs["gh_t8"], torch.cat([bytes_le(vals), bytes_le(blinds)], dim=-1))
     # [K, BK+8, 4, 9]: slots 26..29 = C4_j, 30..33 = A42_j
     T1xC, T1yC = commits[:, 0], commits[:, 1]
     # homomorphic difference commitments (pointAdd.ts:124-143), hash inputs

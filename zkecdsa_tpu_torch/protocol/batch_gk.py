@@ -103,8 +103,7 @@ def _gk_commit_device(tabs, v: torch.Tensor, r: torch.Tensor):
     """Batched Pedersen commits g*v + h*r on the comb kernel, for canonical
     scalar limbs v, r [M, 9], as canonical affine coordinates (x, y)
     [M, 9] (replaces per-instance host double-mults, gk.ts:88-92)."""
-    gh = torch.cat([tabs["g_t8"], tabs["h_t8"]], dim=0)
-    C = comb_mixed(gh, torch.cat([bytes_le(v), bytes_le(r)], dim=-1))
+    C = comb_mixed(tabs["gh_t8"], torch.cat([bytes_le(v), bytes_le(r)], dim=-1))
     x, y, _ = to_affine(tom_ops, C)
     return x, y
 

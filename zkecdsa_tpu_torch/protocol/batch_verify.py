@@ -103,7 +103,7 @@ def vphase(tabs, R, z1d, md, bits, rb8):
     # canonical limbs are their own byte digits: the coordinates commit as
     # Tom-order scalars (the Tom-256 order is the P-256 base prime)
     d8 = torch.cat([bytes_le(torch.stack([sx, sy], dim=-2)), rb8], dim=-1)
-    com = comb_mixed(torch.cat([tabs["g_t8"], tabs["h_t8"]], dim=0), d8)
+    com = comb_mixed(tabs["gh_t8"], d8)
     cx, cy, _ = to_affine(tom_ops, com)  # [N, S, 2, 9]
     return {
         "T0_aff": (x[..., 0, :], y[..., 0, :], inf[..., 0]),
