@@ -40,7 +40,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``device_msm_backend()`` on those 9 proofs, one at a time in this
    process: the host verifier's verdicts, 3 ``straus_msm`` launches per
    honest proof and 1 for the tampered one;
-5. print the ``kernels`` JSON line (per kernel: its first checked shape's
+5. the mesh path (``zkecdsa_tpu_torch.parallel``), on 4a's inputs and
+   tapes, in ranks spawned by ``parallel.launch``; each rank proves and
+   verifies (a warm-up, then one run with the launch counts set to 0
+   just before it and read just after), must give 4a's proof bytes, 256 x
+   True, and False at exactly the tampered position:
+   5a. one rank on NCCL, a 1 x 1 mesh (the dp-sharded layout: the [N, E]
+       phase B and the gathers);
+   5b. four ranks sharing the one card over gloo, a 2 dp x 2 ring mesh
+       (the ring-sharded GK routines, ``field_sum``);
+   5c. in 5b's ranks, ``sharded_gk_total`` (ring 4096, n 12),
+       ``sharded_msm`` (8192 Tom-256 terms) and ``sharded_commit`` (N=256)
+       against their unsharded counterparts, exactly (points affine);
+   phase 3 holds ``field_sum`` against its plain version at the mesh
+   path's shapes.  Four ranks on one card are no scaling measurement;
+6. print the ``kernels`` JSON line (per kernel: its first checked shape's
    times, every shape's record under ``shapes``, ``prove_ms``, the
    kernel time of one prove summed over its shapes, and its launches per
    path), then the last line ``{"ok": true, "device": {...}}``.
@@ -82,6 +96,15 @@ PIPPENGER_MIN_T = 32  # path A: sends both per-row MSMs of the batch to the buck
 BUCKET = (("p256", 256, 48, 5, 256), ("tomEdwards256", 256, 760, 5, 8),
           ("tomEdwards256", 16, 8192, 6, 2))
 LADDER = (4, 1024)  # msm_ladder [R, T] on both curves
+# field_sum [D, R] at the mesh path's calls: the prover's d-values (2 ring
+# ranks, N_l * n = 128 * 12), the verifier's recombination, and
+# sharded_gk_total's local sum (4096 / 2 ring elements)
+FIELD_SUM = ((2, 1536), (2, 128), (2048, 1))
+# phase 5: (name, backend, (dp, ring), run phase 5c in its ranks)
+MESH_RUNS = (("5a", "nccl", (1, 1), False), ("5b", "gloo", (2, 2), True))
+MESH_TIMEOUT = 420  # seconds for one mesh run's ranks
+GK_TOTAL = (4096, 12)  # phase 5c sharded_gk_total [RING, n]
+MESH_MSM_T = 8192  # phase 5c sharded_msm Tom-256 terms
 # path B's one-row MSMs of one proof: GK membership (4n + 4), the exp
 # relations on Tom-256 (a few hundred) and on P-256 (3 + 2 per round)
 SCALAR_MSM = (("tomEdwards256", 52), ("tomEdwards256", 380), ("p256", 43))
@@ -144,6 +167,31 @@ def _prove_one(job):
     with rng.deterministic(seed):
         proof = prove_signature_list(params, mh, sig, pub, which, ring)
     return write_json(SignatureProofList, proof)
+
+
+def _kernel_fns() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches
+    in ``.launches``."""
+    from zkecdsa_tpu_torch.ops.curve_ops import (
+        comb4_bases,
+        comb4_entries,
+        comb_mixed,
+        comb_weier,
+        ec_add,
+        msm_ladder,
+        mul_comb4,
+        shamir,
+        straus_msm,
+        to_affine,
+    )
+    from zkecdsa_tpu_torch.ops.field import chord, field_mul, field_sum
+    from zkecdsa_tpu_torch.ops.msm_bucket import bucket_fold, bucket_sums
+
+    return {fn.__name__: fn for fn in (
+        field_mul, ec_add, to_affine, straus_msm, comb_mixed,
+        shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
+        bucket_sums, bucket_fold, msm_ladder, field_sum,
+    )}
 
 
 def _host_verify(job):
@@ -840,6 +888,172 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
     return shapes, crossover
 
 
+def check_mesh_kernels(dev, rs, log) -> dict:
+    """Phase 3, slice 6: ``field_sum`` at the mesh path's shapes
+    (``FIELD_SUM``), against its plain version exactly, with a row summing
+    p-1 terms; bound by bytes only: (D*R + R) * 36 over the memory rate."""
+    from zkecdsa_tpu_torch.ops.field import NLIMBS, TOM_N, field_sum, field_sum_plain
+
+    q = TOM_N.p
+    recs = []
+    for (D, R), use in zip(FIELD_SUM, ("5b prove: sharded_gk_dvalues", "5b verify: sharded_gk_recombine",
+                                       "5c: sharded_gk_total's local sum")):
+        x = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(D * R)], dev).reshape(D, R, -1)
+        x[:, 0] = TOM_N.const(q - 1, dev)
+        _, rec = _case("field_sum", f"Tom-256 order [{D}, {R}] ({use})", lambda: field_sum(TOM_N, x),
+                       lambda: field_sum_plain(TOM_N, x), _bound(0, (D * R + R) * NLIMBS * 4), 20, log, 0)
+        want = sum([q - 1] * D) % q
+        if TOM_N.unpack(field_sum(TOM_N, x)[:1]) != [want]:
+            raise AssertionError("field_sum disagrees with Python integers")
+        recs.append(rec)
+    return {"field_sum": recs}
+
+
+def _sharded_checks(mesh, dparams, log) -> dict:
+    """Phase 5c in one rank: the sharded routines at full width against
+    their unsharded counterparts on this rank (the same kernels on the
+    whole input) and, for ``sharded_gk_total``, Python integers; inputs
+    from one seed, the same on every rank.  Returns the seconds of each
+    sharded call."""
+    import numpy as np
+    import torch
+
+    from zkecdsa_tpu_torch.curves.instances import tomEdwards256 as g
+    from zkecdsa_tpu_torch.ops.curve_ops import msm, tom_ops
+    from zkecdsa_tpu_torch.ops.field import TOM_N, field_mul, field_sum
+    from zkecdsa_tpu_torch.parallel.mesh import gather, sharded_commit, sharded_gk_total, sharded_msm
+
+    rs = np.random.RandomState(SEED + 5)
+    dev, q = mesh.device, TOM_N.p
+
+    def ints(n):
+        return [int.from_bytes(rs.bytes(40), "little") % q for _ in range(n)]
+
+    def affine_equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tom_ops.to_affine(a), tom_ops.to_affine(b)))
+
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    R, n = GK_TOTAL
+    f_i, v_i = ints(R * n), ints(R)
+    fac, vec = TOM_N.pack(f_i).reshape(R, n, -1), TOM_N.pack(v_i)
+    got = timed("sharded_gk_total", lambda: sharded_gk_total(mesh, fac, vec))
+    fd = fac.to(dev)
+    prod = fd[:, 0]
+    for j in range(1, n):
+        prod = field_mul(TOM_N, prod, fd[:, j])
+    want = field_sum(TOM_N, field_mul(TOM_N, vec.to(dev), prod)[:, None])[0]
+    host = 0
+    for i in range(R):
+        p = v_i[i]
+        for j in range(n):
+            p = p * f_i[i * n + j] % q
+        host = (host + p) % q
+    if not torch.equal(got, want) or TOM_N.unpack(got) != [host]:
+        raise AssertionError("5c: sharded_gk_total disagrees with the unsharded total")
+
+    pool = [g.generator().mul(g.new_scalar(int.from_bytes(rs.bytes(32), "little") % g.order)) for _ in range(64)]
+    pts = tom_ops.pack_points([pool[i % 64] for i in range(MESH_MSM_T)])
+    dig = torch.from_numpy(rs.randint(0, 16, size=(MESH_MSM_T, 64)).astype(np.uint8))
+    got = timed("sharded_msm", lambda: sharded_msm(mesh, tom_ops, pts, dig))
+    if not affine_equal(got, msm(tom_ops, pts.to(dev), dig.to(dev))):
+        raise AssertionError("5c: sharded_msm disagrees with the unsharded msm")
+
+    vals, blinds = TOM_N.pack(ints(N)), TOM_N.pack(ints(N))
+    got = timed("sharded_commit", lambda: gather(mesh, sharded_commit(mesh, dparams, vals, blinds)))
+    if not affine_equal(got, dparams.commit_tom(vals.to(dev), blinds.to(dev))):
+        raise AssertionError("5c: sharded_commit disagrees with commit_tom on the whole batch")
+    log(f"5c: sharded_gk_total [{R}, {n}], sharded_msm [{MESH_MSM_T}], sharded_commit [{N}] exact "
+        f"against their unsharded counterparts; seconds {secs}")
+    return secs
+
+
+def _mesh_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 5a or 5b in one rank: the mesh prove and verify of phase 4a's
+    batch (a warm-up, then one run with the launch counts zeroed just
+    before and read just after), their checks, the tampered batch, and
+    phase 5c when ``job["checks"]``.  Raises on any failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from zkecdsa_tpu_torch.parallel.mesh import make_mesh_2d
+    from zkecdsa_tpu_torch.protocol.batch import BatchProver, device_params_for
+    from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
+    from zkecdsa_tpu_torch.serde import read_json, write_json
+    from zkecdsa_tpu_torch.utils import rng
+    from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList, SystemParametersList
+
+    def log(msg: str) -> None:
+        print(f"[{job['name']} rank {rank}] {msg}", flush=True)
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = make_mesh_2d(*job["mesh"], backend=job["backend"])
+    params = read_json(SystemParametersList, job["params"])
+    t0 = time.perf_counter()
+    dparams = device_params_for(params, mesh.device)
+    dparams.tabs()
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
+    bp, bv = BatchProver(params, mesh=mesh), BatchVerifier(params, mesh=mesh)
+    fns = _kernel_fns()
+
+    def counted(what, run, path):
+        run()
+        torch.cuda.synchronize()
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in fns.items()}
+        missing = [k for k in path if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the mesh {what} path: {missing}")
+        return out, wall, launches
+
+    def prove():
+        tapes = [rng.DeterministicSource(SEED + 100 + i) for i in range(N)]
+        return bp.prove(job["mhs"], job["sigs"], job["pubs"], list(range(N)), job["ring"], tapes)
+
+    proofs, prove_s, launches_prove = counted("prove", prove, job["prove_path"])
+    wire = [write_json(SignatureProofList, p) for p in proofs]
+    sha = hashlib.sha256("".join(wire).encode()).hexdigest()
+    if sha != job["sha256"]:
+        raise AssertionError(f"the mesh proofs differ from phase 4a's (sha256 {sha})")
+    ok, verify_s, launches_verify = counted(
+        "verify", lambda: bv.verify(job["mhs"], job["ring"], proofs), job["verify_path"]
+    )
+    if ok != [True] * N:
+        raise AssertionError(f"the mesh verify rejected honest proofs: {ok.count(False)} False")
+    bad = read_json(SignatureProofList, wire[TAMPER_AT])
+    bad.membershipProof.f[0] = bad.membershipProof.f[1]
+    t0 = time.perf_counter()
+    verdict = bv.verify(job["mhs"], job["ring"], proofs[:TAMPER_AT] + [bad] + proofs[TAMPER_AT + 1 :])
+    tampered_s = time.perf_counter() - t0
+    false_at = [i for i, v in enumerate(verdict) if not v]
+    if false_at != [TAMPER_AT]:
+        raise AssertionError(f"the mesh verify of the tampered batch: False at {false_at}")
+    report = dict(
+        rank=rank, coords=[mesh.coord("dp"), mesh.coord("ring")], device=str(mesh.device),
+        backend=dist.get_backend(), device_params_s=params_s, prove_s=prove_s, verify_s=verify_s,
+        tampered_s=tampered_s, sha256=sha, false_at=false_at,
+        launches_prove=launches_prove, launches_verify=launches_verify,
+    )
+    log(json.dumps({k: v for k, v in report.items() if not k.startswith("launches")}))
+    if job["checks"]:
+        report["sharded_s"] = _sharded_checks(mesh, dparams, log)
+    return report
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -865,19 +1079,6 @@ def main() -> int:
     import numpy as np
 
     from zkecdsa_tpu_torch import _build, ecdsa
-    from zkecdsa_tpu_torch.ops.curve_ops import (
-        comb4_bases,
-        comb4_entries,
-        comb_mixed,
-        comb_weier,
-        ec_add,
-        mul_comb4,
-        shamir,
-        msm_ladder,
-        straus_msm,
-        to_affine,
-    )
-    from zkecdsa_tpu_torch.ops.field import chord, field_mul
     from zkecdsa_tpu_torch.ops.msm_bucket import bucket_fold, bucket_sums
     from zkecdsa_tpu_torch.protocol.batch import BatchProver, device_params_for
     from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
@@ -934,16 +1135,13 @@ def main() -> int:
         msm_shapes, crossover = check_msm_kernels(dev, rs, log)
         for k, recs in msm_shapes.items():
             shapes.setdefault(k, []).extend(recs)
+        shapes.update(check_mesh_kernels(dev, rs, log))
 
         host_jsons = proving.get(timeout=900)
         log(f"host proving: {K} proofs at ring {RING} in {time.perf_counter() - t0:.1f} s "
             f"({workers} processes)")
 
-        counters = {fn.__name__: fn for fn in (
-            field_mul, ec_add, to_affine, straus_msm, comb_mixed,
-            shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
-            bucket_sums, bucket_fold, msm_ladder,
-        )}
+        counters = _kernel_fns()
         prove_path = ("field_mul", "ec_add", "to_affine", "comb_mixed", "shamir",
                       "comb4_bases", "comb4_entries", "mul_comb4", "comb_weier", "chord")
         verify_path = ("field_mul", "ec_add", "to_affine", "straus_msm", "comb_mixed")
@@ -1142,7 +1340,38 @@ def main() -> int:
     log(f"slice: scalar verify_signature_list at ring {RING}: median {dev_med:.3f} s per honest proof "
         f"on the device MSM backend, {host_med:.3f} s on the host, on {smi}")
 
-    # -- phase 5: the kernels line and the result -----------------------------
+    # -- phase 5: the mesh path, in spawned ranks (5a NCCL on one rank, 5b
+    #    four gloo ranks sharing the card, with 5c in them) ------------------
+    from zkecdsa_tpu_torch.parallel import launch
+
+    proof_sha = hashlib.sha256("".join(wire).encode()).hexdigest()
+    job = dict(params=params_json, mhs=mhs, sigs=sigs, pubs=pubs, ring=ring, sha256=proof_sha)
+    mesh_runs = {}
+    for name, backend, (dp, rg), checks in MESH_RUNS:
+        ring_path = ("field_sum",) if rg > 1 else ()
+        t0 = time.perf_counter()
+        reports = launch.run(
+            _mesh_rank, dp * rg, backend=backend, timeout=MESH_TIMEOUT,
+            args=(dict(job, name=name, backend=backend, mesh=(dp, rg), checks=checks,
+                       prove_path=prove_path + ring_path, verify_path=verify_path + ring_path),),
+        )
+        mesh_runs[name] = reports
+        walls = [(r["prove_s"], r["verify_s"]) for r in reports]
+        log(f"{name}: mesh dp={dp} x ring={rg} over {backend}, {dp * rg} rank(s) on "
+            f"{sorted({r['device'] for r in reports})}, {time.perf_counter() - t0:.1f} s with the spawn; "
+            f"every rank: 4a's proof bytes (sha256 {proof_sha[:16]}...), {N} x True, tampered False at "
+            f"{reports[0]['false_at']}")
+        for r in reports:
+            log(f"{name} rank {r['rank']} {r['coords']}: DeviceParams {r['device_params_s']:.2f} s, prove "
+                f"{r['prove_s']:.3f} s ({N / r['prove_s']:.2f} proofs/s), verify {r['verify_s']:.3f} s "
+                f"({N / r['verify_s']:.2f} proofs/s), tampered batch {r['tampered_s']:.2f} s; launches "
+                f"prove {json.dumps(r['launches_prove'])}, verify {json.dumps(r['launches_verify'])}")
+        p_s, v_s = max(w[0] for w in walls), max(w[1] for w in walls)
+        log(f"slice: mesh {name} N={N} ring={RING}: prove {N / p_s:.2f} proofs/s, verify {N / v_s:.2f} "
+            f"proofs/s (slowest rank) against unsharded {N / prove_wall:.2f} / {N / verify_wall:.2f} "
+            f"(4a / 4b), on {smi}" + ("; four ranks share one card: no scaling figure" if dp * rg > 1 else ""))
+
+    # -- phase 6: the kernels line and the result -----------------------------
     meta = {
         "field_mul": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/ops/pallas_field.py:183"),
         "ec_add": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/pallas_field.py:214"),
@@ -1158,19 +1387,26 @@ def main() -> int:
         "bucket_sums": ("zkecdsa_tpu_torch/csrc/bucket.cu", "zkecdsa_tpu/ops/msm_bucket.py:123"),
         "bucket_fold": ("zkecdsa_tpu_torch/csrc/bucket.cu", "zkecdsa_tpu/ops/msm_bucket.py:123"),
         "msm_ladder": ("zkecdsa_tpu_torch/csrc/ladder.cu", "zkecdsa_tpu/ops/curve_ops.py:373"),
+        "field_sum": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/parallel/mesh.py:130"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         recs = shapes[name]
         e = recs[0]  # slice 1's kernels: the verifier's shape; else the prover's first
         prove_ms = sum(r["ms"] * r["launches_per_prove"] / r["launches_per_call"] for r in recs)
+        mesh_launches = {
+            run: {path: [r[f"launches_{path}"][name] for r in reports] for path in ("prove", "verify")}
+            for run, reports in mesh_runs.items()
+        }
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches_prove[name] + launches_verify[name]
-                         + launches_bucket[name] + launches_scalar[name]),
+                         + launches_bucket[name] + launches_scalar[name]
+                         + sum(sum(v) for m in mesh_launches.values() for v in m.values())),
             "launches_prove": launches_prove[name], "launches_verify": launches_verify[name],
             "launches_bucket_verify": launches_bucket[name],
             "launches_scalar_verify": launches_scalar[name],
+            "launches_mesh": mesh_launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": None, "call": e["call"],
@@ -1190,6 +1426,8 @@ def main() -> int:
         "crossover": crossover,
         "prove_stages": ptimer.stages, "verify_stages": vtimer.stages,
         "bucket_verify_stages": btimer.stages,
+        "mesh": {run: [{k: v for k, v in r.items() if not k.startswith("launches")} for r in reports]
+                 for run, reports in mesh_runs.items()},
     }))
     print(json.dumps({
         "ok": True,

@@ -10,12 +10,17 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch.distributed as dist
+
 from zkecdsa_tpu_torch import _build
+from zkecdsa_tpu_torch import entry as tentry
 from zkecdsa_tpu_torch.curves import multimult as tmm
 from zkecdsa_tpu_torch.curves.instances import p256
 from zkecdsa_tpu_torch.ops import curve_ops as tcurve
 from zkecdsa_tpu_torch.ops import field as tf
 from zkecdsa_tpu_torch.ops import msm_bucket as tmb
+from zkecdsa_tpu_torch.parallel import mesh as tmesh
+from zkecdsa_tpu_torch.protocol import batch_gk as tgk
 from zkecdsa_tpu_torch.protocol import batch as tbatch
 from zkecdsa_tpu_torch.protocol import batch_verify as tbv
 from zkecdsa_tpu_torch.protocol import verify as tverify
@@ -28,7 +33,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# A tiny verify (4 exp rounds, 2 checked, ring of 2) on the Straus and on
+# The mesh modules and the entry points, a tiny verify (4 exp rounds, 2
+# checked, ring of 2) on the Straus and on
 # the bucket backend, the scalar verifier on the device MSM backend (20
 # rounds, the count it checks), and a tiny batched prove (one proof, ring
 # of 2) in a fresh interpreter, then the list of every loaded module that
@@ -36,6 +42,9 @@ ROOT = Path(__file__).resolve().parents[1]
 _PROBE = r"""
 import dataclasses, hashlib, sys
 import chip_smoke  # noqa: F401  the chip script's own imports
+import zkecdsa_tpu_torch.entry  # noqa: F401
+import zkecdsa_tpu_torch.parallel  # noqa: F401
+import zkecdsa_tpu_torch.parallel.launch  # noqa: F401
 from zkecdsa_tpu_torch import ecdsa
 from zkecdsa_tpu_torch.protocol.batch import BatchProver
 from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
@@ -110,6 +119,20 @@ def test_entry_point_defaults_to_cuda(monkeypatch):
     assert tmm._MSM_BACKEND is None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tverify.device_msm(p256, [p256.generator()], [1])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tgk.batch_verify_membership(params.proof_group, [], [1, 2], [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tentry.entry()
+
+
+def test_make_mesh_defaults_to_cuda(monkeypatch):
+    """make_mesh() means CUDA: without a card it raises before it starts
+    a process group, and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (tmesh.make_mesh, lambda: tmesh.make_mesh_2d(1, 1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert not dist.is_initialized()
 
 
 def _meta(shape, dtype=torch.int32):
@@ -120,6 +143,7 @@ def _meta(shape, dtype=torch.int32):
 _CALLS = {
     "field_mul": lambda: tf.field_mul(tf.P256_P, _meta((4, 9)), _meta((4, 9))),
     "ring_fold": lambda: tf.ring_fold(_meta((4, 9)), _meta((1, 2, 9)), _meta((1, 2, 9))),
+    "field_sum": lambda: tf.field_sum(tf.TOM_N, _meta((2, 3, 9))),
     "ec_add": lambda: tcurve.ec_add(tcurve.p256_ops, _meta((4, 3, 9)), _meta((4, 3, 9))),
     "to_affine": lambda: tcurve.to_affine(tcurve.tom_ops, _meta((4, 4, 9))),
     "straus_msm": lambda: tcurve.straus_msm(

@@ -176,6 +176,71 @@ def test_field_mul_kernel_vs_plain(f, cuda):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("D", [0, 1, 2, 5])
+def test_field_sum_plain_vs_integers(D):
+    """The plain version on CPU tensors: the sum over the leading axis."""
+    f = tf.TOM_N
+    rs = np.random.RandomState(40 + D)
+    R = 7
+    x_i = _values(f.p, rs, D * R) if D else []
+    got = tf.field_sum(f, f.pack(x_i).reshape(D, R, tf.NLIMBS))
+    assert f.unpack(got) == [sum(x_i[d * R + r] for d in range(D)) % f.p for r in range(R)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 2, 8, 2048])
+@pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
+def test_field_sum_kernel_vs_plain(f, D, cuda):
+    """Ragged row counts around the kernel's rows per block (256 / lanes)."""
+    rs = np.random.RandomState(41)
+    for R in (1, 3, 129):
+        x = f.pack(_values(f.p, rs, max(D * R, 5))[: D * R], cuda).reshape(D, R, -1)
+        x[-1, 0] = f.const(f.p - 1, cuda)
+        assert torch.equal(tf.field_sum(f, x), tf.field_sum_plain(f, x))
+    torch.cuda.synchronize()
+
+
+def test_build_lock_excludes_a_second_process(monkeypatch, tmp_path):
+    """While one process holds the build lock, another's non-blocking
+    acquire of the same lock file fails; once released, it succeeds."""
+    import subprocess
+    import sys
+
+    from zkecdsa_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    probe = (
+        "import fcntl, os, sys\n"
+        "fd = os.open(sys.argv[1], os.O_RDWR)\n"
+        "try:\n"
+        "    fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)\n"
+        "    print('acquired')\n"
+        "except BlockingIOError:\n"
+        "    print('busy')\n"
+    )
+    lock = str(tmp_path / _build.LOCK_NAME)
+
+    def other():
+        return subprocess.run([sys.executable, "-c", probe, lock], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.strip()
+
+    with _build.build_lock():
+        assert other() == "busy"
+    assert other() == "acquired"
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_on_one_card(cuda):
+    """``backend="nccl"`` with two ranks on one card raises NCCL's error;
+    nothing falls back to gloo."""
+    import torch_mesh_ranks
+
+    from zkecdsa_tpu_torch.parallel import launch
+
+    with pytest.raises(RuntimeError, match="Duplicate GPU|ncclInvalidUsage"):
+        launch.run(torch_mesh_ranks.nccl_pair_on_one_card, 2, backend="nccl", timeout=120)
+
+
 @pytest.mark.cuda
 def test_ring_fold_kernel_vs_plain(cuda):
     f = tf.TOM_N

@@ -6,7 +6,9 @@ libzkkernels.so`` beside the package, and the library is loaded with
 ``ctypes``: a plain C interface, so the build takes seconds, not the
 minutes a source that includes PyTorch's headers would.  The build runs at
 the first kernel launch and again only when a source is newer than the
-library.
+library.  An ``flock`` on ``build.lock`` in the build directory covers the
+stale check and the build, so processes started together (the ranks of a
+mesh) build once and the others load what it built.
 
 Every C entry returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code.  A missing ``nvcc`` or a failed build raises: no caller
@@ -15,7 +17,9 @@ falls back to a plain version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -23,13 +27,14 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build", "check", "LIB_PATH"]
+__all__ = ["load", "build", "build_lock", "check", "LIB_PATH"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "zkecdsa_tpu_torch"
 LIB_PATH = BUILD_DIR / "libzkkernels.so"
 LOG_PATH = BUILD_DIR / "nvcc.log"
+LOCK_NAME = "build.lock"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -41,6 +46,7 @@ _L = ctypes.c_longlong
 # C entry -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "zk_field_mul": [_I, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P],
+    "zk_field_sum": [_I, _L, _L, _P, _P, _P],
     "zk_ec_add": [_I, _L, _P, _P, _P, _P],
     "zk_to_affine": [_I, _L, _P, _P, _P, _P, _P],
     "zk_straus_msm": [_I, _L, _L, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -88,10 +94,28 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in deps)
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold the build directory's lock file (``fcntl.flock``, exclusive)
+    for the duration: one process at a time checks and builds."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd = os.open(BUILD_DIR / LOCK_NAME, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # closing the descriptor releases the lock
+
+
 def build() -> float:
-    """Compile every source (in parallel) and link the library; returns
-    the seconds it took.  Raises RuntimeError with nvcc's output on a
-    failure."""
+    """Compile every source (in parallel) and link the library, under the
+    build lock; returns the seconds it took.  Raises RuntimeError with
+    nvcc's output on a failure."""
+    with build_lock():
+        return _build()
+
+
+def _build() -> float:
     import time
 
     t0 = time.perf_counter()
@@ -132,8 +156,9 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                build()
+            with build_lock():
+                if _stale():
+                    _build()
             lib = ctypes.CDLL(str(LIB_PATH))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -1,5 +1,6 @@
 // field_mul: c = a*b mod p, and the pair form c = a*b + d*e mod p, over
-// canonical 9-limb values, one thread per output row.
+// canonical 9-limb values, one thread per output row.  field_sum: the sum
+// over the leading axis of [D, R] values mod p (at the end of the file).
 //
 // Replaces zkecdsa_tpu/ops/pallas_field.py:183 pallas_mul (and the generic
 // F32Field.mul, zkecdsa_tpu/ops/f32field.py:354).  The pair form carries
@@ -79,6 +80,79 @@ extern "C" int zk_field_mul(int mod, long long N, long long K,
         case ZK_TOM_P: launch<ZK_TOM_P>(N, K, A, B, D, E, o, st); break;
         case ZK_TOM_N: launch<ZK_TOM_N>(N, K, A, B, D, E, o, st); break;
         case ZK_WAR_P: launch<ZK_WAR_P>(N, K, A, B, D, E, o, st); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// field_sum: out[r] = sum_d x[d, r] mod p over canonical [D, R, 9] values.
+//
+// Replaces the fo.add folds of the sharded GK routines,
+// zkecdsa_tpu/parallel/mesh.py:130-136 (sharded_gk_total: the local sum
+// and the fold of the gathered partials), :204-207 (sharded_gk_dvalues)
+// and :255-258 (sharded_gk_recombine).
+//
+// Bound on the H100: bytes.  An addition is ~30 instructions against 36
+// bytes read, so the kernel only has to read each value once.  A block of
+// 256 threads serves 256/lanes output rows; the `lanes` threads of a row
+// (a power of two, at most 256, chosen by the wrapper from D) sum a
+// strided share of the D values each, then fold their partial sums in a
+// shared-memory tree.  Modular addition of canonical values is exact, so
+// any order gives the plain version's integers.
+
+template <int MOD>
+__global__ void field_sum_kernel(long long D, long long R, int lanes,
+                                 const uint32_t* __restrict__ x, uint32_t* __restrict__ out) {
+    extern __shared__ uint32_t part[];  // [blockDim.x, ZK_NL]
+    const ZkModulus& M = ZK_MODS[MOD];
+    const int lane = threadIdx.x % lanes;
+    const long long r = (long long)blockIdx.x * (blockDim.x / lanes) + threadIdx.x / lanes;
+    Fe acc, v;
+    fe_set_zero(acc);
+    if (r < R) {
+        for (long long d = lane; d < D; d += lanes) {
+            fe_load(v, x + (d * R + r) * ZK_NL);
+            fe_add(acc, acc, v, M);
+        }
+    }
+    fe_store(part + threadIdx.x * ZK_NL, acc);
+    __syncthreads();
+    // lane k < h adds lane k + h's sum: the readers' slots are not written
+    // in the same step, so one barrier a step suffices
+    for (int h = lanes / 2; h > 0; h >>= 1) {
+        if (lane < h) {
+            fe_load(v, part + (threadIdx.x + h) * ZK_NL);
+            fe_add(acc, acc, v, M);
+            fe_store(part + threadIdx.x * ZK_NL, acc);
+        }
+        __syncthreads();
+    }
+    if (lane == 0 && r < R) fe_store(out + r * ZK_NL, acc);
+}
+
+template <int MOD>
+static void launch_sum(long long D, long long R, const uint32_t* x, uint32_t* out, cudaStream_t st) {
+    const int threads = 256;
+    int lanes = 1;
+    while (lanes < threads && lanes < D) lanes <<= 1;
+    const long long rows = threads / lanes;
+    const long long blocks = (R + rows - 1) / rows;
+    field_sum_kernel<MOD><<<(unsigned)blocks, threads, threads * ZK_NL * sizeof(uint32_t), st>>>(
+        D, R, lanes, x, out);
+}
+
+extern "C" int zk_field_sum(int mod, long long D, long long R, const void* x, void* out,
+                            void* stream) {
+    if (R == 0) return 0;
+    const uint32_t* X = (const uint32_t*)x;
+    uint32_t* o = (uint32_t*)out;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (mod) {
+        case ZK_P256_P: launch_sum<ZK_P256_P>(D, R, X, o, st); break;
+        case ZK_P256_N: launch_sum<ZK_P256_N>(D, R, X, o, st); break;
+        case ZK_TOM_P: launch_sum<ZK_TOM_P>(D, R, X, o, st); break;
+        case ZK_TOM_N: launch_sum<ZK_TOM_N>(D, R, X, o, st); break;
+        case ZK_WAR_P: launch_sum<ZK_WAR_P>(D, R, X, o, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

@@ -30,9 +30,11 @@ canonical values, at the function boundary.
 Kernel wrappers
 ---------------
 :func:`field_mul` (``csrc/field.cu``) and :func:`ring_fold`, which runs the
-GK ring contraction on the pair form; :func:`chord` (``csrc/chord.cu``),
-the prover's phase-B field pass.  A CPU tensor takes the plain version;
-any other tensor launches the kernel or raises.
+GK ring contraction on the pair form; :func:`field_sum` (``csrc/field.cu``),
+the sum over a leading axis that folds the sharded GK partials;
+:func:`chord` (``csrc/chord.cu``), the prover's phase-B field pass.  A CPU
+tensor takes the plain version; any other tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ __all__ = [
     "WAR_P",
     "NLIMBS",
     "field_mul",
+    "field_sum",
+    "field_sum_plain",
     "ring_fold",
     "bytes_le",
     "chord",
@@ -446,6 +450,46 @@ def ring_fold(
             f[:, j : j + 1].expand(N, K, NLIMBS), T[:, 1::2],
         )
     return T[:, 0].contiguous() if n else T[:, 0].clone()
+
+
+def field_sum_plain(f: FieldT, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`field_sum`, on any device: a
+    tree of ``FieldT.add`` calls that halves the leading axis each step
+    (modular addition is exact, so the order does not change the
+    integers)."""
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=torch.int32, device=x.device)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = torch.cat([f.add(x[:h], x[h : 2 * h]), x[2 * h :]])
+    return x[0].clone()
+
+
+def field_sum(f: FieldT, x: torch.Tensor) -> torch.Tensor:
+    """sum_d x[d] mod p: canonical [D, R, 9] limbs -> [R, 9] canonical.
+
+    Kernel ``csrc/field.cu`` (replaces the ``fo.add`` folds of
+    ``zkecdsa_tpu/parallel/mesh.py:130-136``, ``:204-207`` and
+    ``:255-258``, which sum the ring-sharded GK partials); bound by the
+    bytes it reads.  A CPU tensor takes :func:`field_sum_plain`."""
+    if x.device.type == "cpu":
+        return field_sum_plain(f, x)
+    lib = _build.load()
+    _check_limbs(x)
+    if x.dim() != 3:
+        raise ValueError(f"expected [D, R, {NLIMBS}] limbs, got {tuple(x.shape)}")
+    x = x.contiguous()
+    out = torch.empty((x.shape[1], NLIMBS), dtype=torch.int32, device=x.device)
+    code = lib.zk_field_sum(
+        f.mod_id, x.shape[0], x.shape[1], x.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(code, "zk_field_sum")
+    field_sum.launches += 1
+    return out
+
+
+field_sum.launches = 0
 
 
 # Rows of the phase-B chord pass (see :func:`chord`), all mod TOM_N: the

@@ -10,7 +10,8 @@ per proof; here the device works on whole batches).
 * phase B (device, :func:`phase_b_flat`): the even-bit rounds of all
   instances as one flat [K] row axis - T1 = T + D, the chord-rule field
   pass (kernel ``chord``), the 34 commitments per row and the homomorphic
-  combinations the sub-proof hashes need;
+  combinations the sub-proof hashes need; under a mesh, :func:`phase_b`
+  on the [N, E] layout, which shards over the instances;
 * GK membership (``batch_gk.batch_prove_membership``): the d-values on the
   ring-fold kernel and the 4n commitments per instance on the comb kernel;
 * responses (host): scalar arithmetic and proof assembly, producing the
@@ -20,6 +21,11 @@ per proof; here the device works on whole batches).
 Randomness: each instance draws its tape in exactly the reference's order,
 so a batched proof is byte-identical to the host prover's under the same
 per-instance source.
+
+With a ``mesh`` (``parallel.mesh``, one process per rank) every rank runs
+the host stages on the whole batch and the device stages on its ``dp``
+slice of the instances; device outputs are gathered over ``dp`` before the
+host reads them, so every rank returns the unsharded prover's proofs.
 
 The reference builds its comb tables on the device; here they are built
 once per parameter set with the host curve arithmetic and uploaded, as the
@@ -61,6 +67,7 @@ from ..ops.curve_ops import (
     window_table,
 )
 from ..ops.field import P256_N, TOM_N, FieldT, bytes_le, chord
+from ..parallel.mesh import gather, shard_batch
 from ..utils import rng
 from ..utils.profiling import stages
 from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
@@ -72,6 +79,7 @@ __all__ = [
     "batched_prove_signature_list",
     "device_params_for",
     "phase_a",
+    "phase_b",
     "phase_b_flat",
     "resolve_device",
 ]
@@ -127,6 +135,13 @@ class DeviceParams:
                 "h_t8": gh.canon[COMB_WINDOWS:],
             }
         return self._tabs
+
+    def commit_tom(self, v: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """Pedersen commitments g*v + h*r on Tom-256 (reference
+        ``protocol/batch.py:142``): canonical values and blindings [..., 9]
+        on ``self.device`` -> projective points [..., 4, 9], on the comb
+        kernel with the tables of ``tabs()["gh_t8"]``."""
+        return comb_mixed(self.tabs()["gh_t8"], torch.cat([bytes_le(v), bytes_le(r)], dim=-1))
 
     @staticmethod
     def _host_table(ops, base) -> torch.Tensor:
@@ -342,6 +357,24 @@ def phase_b_flat(tabs, T, D, TxC, TyC, pkX, pkY, Tx_v, pkx_v, pky_v, pky_r,
     return {"tom_aff": (sx, sy), "ints": ints}
 
 
+def phase_b(tabs, T, D, TxC, TyC, pkX, pkY, Tx_v, pkx_v, pky_v, pky_r,
+            txr, com_vals, com_blinds, eidx):
+    """Phase B on the [N, E] even-round layout (reference
+    ``protocol/batch.py:308``), the one a mesh shards over the instances:
+    ``eidx`` [N, E] holds each instance's even rounds, padded by repeating
+    its last one; com_vals/com_blinds are [N, E, BK, 9].  The rows run
+    through :func:`phase_b_flat`'s kernels, one launch each over the N*E
+    rows; the outputs come back as [N, E, ...].  Unlike the reference,
+    ``txr`` is the whole [N, 80, 9] blinding array, selected here as
+    phase_b_flat selects it."""
+    N, E = eidx.shape
+    srcid = (torch.arange(N, device=eidx.device)[:, None] * SECPARAM + eidx).reshape(-1)
+    b = phase_b_flat(tabs, T, D, TxC, TyC, pkX, pkY, Tx_v, pkx_v, pky_v, pky_r, txr,
+                     com_vals.flatten(0, 1), com_blinds.flatten(0, 1), srcid)
+    return {"tom_aff": tuple(t.unflatten(0, (N, E)) for t in b["tom_aff"]),
+            "ints": b["ints"].unflatten(0, (N, E))}
+
+
 # Slot order of the stacked phase-B Pedersen commitments.  Values for slots
 # 0..5 are computed on device; the host only supplies blindings there.
 # 0 t1x (T1x commit)   1 t1y   2 i8 (C_8)   3 i10 (C_10)   4 i11 (C_11)
@@ -375,10 +408,32 @@ class _Tape:
 # ---------------------------------------------------------------------------
 
 
+def mesh_device(mesh, device, who: str) -> torch.device:
+    """The device of an entry point built on ``mesh``: the mesh's, which
+    needs a ``dp`` axis; a ``device`` the caller names as well must be the
+    same."""
+    if "dp" not in mesh.shape:
+        raise ValueError(
+            f"{who} shards the proof batch over a 'dp' mesh axis; got mesh axes "
+            f"{tuple(mesh.shape)} - build the mesh with parallel.mesh.make_mesh() or make_mesh_2d()"
+        )
+    if device is not None:
+        d = torch.device(device)
+        if d.type != mesh.device.type or (d.index is not None and d != mesh.device):
+            raise ValueError(f"{who}: device {d} is not the mesh's device {mesh.device}")
+    return mesh.device
+
+
 class BatchProver:
     """Proves batches of signatures against one parameter set on
     ``device`` (CUDA unless the caller names another; ``device="cpu"``
-    runs the plain PyTorch versions)."""
+    runs the plain PyTorch versions).
+
+    With a ``mesh`` (``parallel.mesh``) the instances are sharded over its
+    ``dp`` axis and the GK ring over its ``ring`` axis when it has one;
+    every rank calls :meth:`prove` with the same inputs and explicit tapes
+    and gets the whole batch's proofs.  The batch must divide by the
+    ``dp`` size."""
 
     # Largest sub-batch one prove pass handles: the per-instance comb4
     # tables take 110 KB each, the phase-B rows ~40 per instance.  Larger
@@ -386,8 +441,11 @@ class BatchProver:
     # proofs are byte-identical to unchunked.
     MAX_CHUNK = 256
 
-    def __init__(self, params: SystemParametersList, device=None) -> None:
+    def __init__(self, params: SystemParametersList, device=None, mesh=None) -> None:
+        if mesh is not None:
+            device = mesh_device(mesh, device, "BatchProver")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = params
         self.dev = device_params_for(params, self.device)
         self.tabs = self.dev.tabs()
@@ -403,12 +461,21 @@ class BatchProver:
         timer=None,
     ) -> list[SignatureProofList]:
         N_all = len(msg_hashes)
+        mesh = self.mesh
         if tapes is None:
+            if mesh is not None:
+                raise ValueError(
+                    "under a mesh every rank must draw the same randomness: pass the tapes"
+                )
             tapes = [rng.get_source() for _ in range(N_all)]
         if N_all > self.MAX_CHUNK:
+            step = self.MAX_CHUNK
+            if mesh is not None:  # dp-divisible chunks keep every shard even
+                dp = mesh.shape["dp"]
+                step = max(dp, step - step % dp)
             out: list[SignatureProofList] = []
-            for lo in range(0, N_all, self.MAX_CHUNK):
-                hi = min(lo + self.MAX_CHUNK, N_all)
+            for lo in range(0, N_all, step):
+                hi = min(lo + step, N_all)
                 out.extend(self.prove(
                     msg_hashes[lo:hi], sig_bytes[lo:hi], public_keys_raw[lo:hi],
                     whichs[lo:hi], keys, tapes[lo:hi], timer=timer,
@@ -461,11 +528,14 @@ class BatchProver:
                 for j in range(SECPARAM):
                     alpha[i][j], r_rnd[i][j], txr[i][j], tyr[i][j] = d[3 + 4 * j : 7 + 4 * j]
 
-        def pack(ctx, vals):  # [N, 9]
-            return _pk_scalars(ctx, vals, device)
+        # the device phases take this rank's dp slice of the instances
+        # (all of them without a mesh)
+        def pack(ctx, vals):  # [N_l, 9]
+            return _pk_scalars(ctx, shard_batch(mesh, vals), device)
 
-        def pack2(ctx, rows):  # [N, 80, 9]
-            return _pk_scalars(ctx, [v for row in rows for v in row], device).reshape(N, SECPARAM, -1)
+        def pack2(ctx, rows):  # [N_l, 80, 9]
+            rows = shard_batch(mesh, rows)
+            return _pk_scalars(ctx, [v for row in rows for v in row], device).reshape(len(rows), SECPARAM, -1)
 
         with stage("phase_a.pack"):
             pkx_v = pack(fo, [c[0] for c in pk_coords])
@@ -473,13 +543,16 @@ class BatchProver:
             pky_r_d = pack(fo, pky_r)
             txr_d = pack2(fo, txr)
             a_args = (
-                self.tabs, p256_ops.pack_points(pk_pts, device),
+                self.tabs, p256_ops.pack_points(shard_batch(mesh, pk_pts), device),
                 pack(fn, u1s), pack(fn, u2s), pack(fn, z1s), pack(fn, s1s), pack(fn, com_r),
                 pkx_v, pack(fo, pkx_r), pky_v, pky_r_d,
                 pack2(fn, alpha), pack2(fn, r_rnd), txr_d, pack2(fo, tyr),
             )
         with stage("phase_a.device"):
             a = phase_a(*a_args)
+            # what the host reads, gathered over dp
+            for k in ("small_aff", "pk_aff", "TA_aff", "TC_aff"):
+                a[k] = tuple(gather(mesh, t) for t in a[k])
 
         # host point objects for hashing / assembly
         with stage("phase_a.unpack"):
@@ -566,36 +639,62 @@ class BatchProver:
                             keq[i][j][jj], a1r[i][j][jj], a2r[i][j][jj] = d[p : p + 3]
                             p += 3
 
-        # one flat [K] row axis over all instances' even rounds, K
-        # quantized to 64 (K_real <= 512) or 512; padding repeats the last
-        # real row; an all-odd batch computes one placeholder row
-        with stage("phase_b.pack"):
-            pairs = [(i, j) for i in range(N) for j in range(SECPARAM) if even_mask[i][j]]
-            K_real = len(pairs)
-            if not pairs:
-                pairs = [(0, 0)]
-            quantum = 64 if K_real <= 512 else 512
-            K = max(quantum, -(-K_real // quantum) * quantum)
-            pairs_p = pairs + [pairs[-1]] * (K - len(pairs))
+        def commit_stack(pairs):
+            """The [_SLOT]-ordered commit stack of the (i, j) rows:
+            values and blindings [len(pairs), BK, 9]."""
             vals_rows, blind_rows = [], []
-            for i, j in pairs_p:
+            for i, j in pairs:
                 vals_rows += [0] * 6  # device fills t1x, t1y, i8, i10, i11, i13
                 vals_rows += kx[i][j] + ky[i][j] + kz[i][j] + kz[i][j]
                 vals_rows += keq[i][j] + keq[i][j]
                 blind_rows += [tape_b[nm][i][j] for nm in names_b]
                 blind_rows += axr[i][j] + ayr[i][j] + azr[i][j] + a41r[i][j]
                 blind_rows += a1r[i][j] + a2r[i][j]
-            srcid = torch.tensor([i * SECPARAM + j for i, j in pairs_p], dtype=torch.int64,
-                                 device=device)
-            com_vals = _pk_scalars(fo, vals_rows, device).reshape(K, BK, -1)
-            com_blinds = _pk_scalars(fo, blind_rows, device).reshape(K, BK, -1)
+            return (_pk_scalars(fo, vals_rows, device).reshape(len(pairs), BK, -1),
+                    _pk_scalars(fo, blind_rows, device).reshape(len(pairs), BK, -1))
+
+        # Unsharded: one flat [K] row axis over all instances' even rounds,
+        # K quantized to 64 (K_real <= 512) or 512; padding repeats the last
+        # real row; an all-odd batch computes one placeholder row.  Under a
+        # mesh: the [N, E] layout (E = the batch's largest even count
+        # quantized to {48, 56, 64, 80}; an instance's padding repeats its
+        # last even round), this rank's dp slice of it.
+        flat = mesh is None
+        with stage("phase_b.pack"):
+            pairs = [(i, j) for i in range(N) for j in range(SECPARAM) if even_mask[i][j]]
+            K_real = len(pairs)
+            if flat:
+                if not pairs:
+                    pairs = [(0, 0)]
+                quantum = 64 if K_real <= 512 else 512
+                K = max(quantum, -(-K_real // quantum) * quantum)
+                pairs_p = pairs + [pairs[-1]] * (K - len(pairs))
+                srcid = torch.tensor([i * SECPARAM + j for i, j in pairs_p], dtype=torch.int64,
+                                     device=device)
+                com_vals, com_blinds = commit_stack(pairs_p)
+            else:
+                cnt = np.array([sum(row) for row in even_mask], np.int64)
+                E = next(e for e in (48, 56, 64, SECPARAM) if cnt.max() <= e)
+                eidx = np.zeros((N, E), np.int64)
+                for i in range(N):
+                    ev = [j for j in range(SECPARAM) if even_mask[i][j]]
+                    eidx[i, : len(ev)] = ev
+                    eidx[i, len(ev) :] = ev[-1] if ev else 0
+                mine = shard_batch(mesh, range(N))
+                com_vals, com_blinds = commit_stack([(i, int(j)) for i in mine for j in eidx[i]])
+                com_vals = com_vals.reshape(len(mine), E, BK, -1)
+                com_blinds = com_blinds.reshape(len(mine), E, BK, -1)
 
         with stage("phase_b.device"):
-            b = phase_b_flat(
+            b_args = (
                 self.tabs, a["T"], a["D"], a["TC"][:, :, 0], a["TC"][:, :, 1],
                 a["pkC"][:, 0], a["pkC"][:, 1], a["Tx_v"],
-                pkx_v, pky_v, pky_r_d, txr_d, com_vals, com_blinds, srcid,
+                pkx_v, pky_v, pky_r_d, txr_d, com_vals, com_blinds,
             )
+            if flat:
+                b = phase_b_flat(*b_args, srcid)
+            else:
+                b = phase_b(*b_args, torch.from_numpy(eidx[mine.start : mine.stop]).to(device))
 
         # ---- batched GK membership (tape order per instance: after the
         # exp draws, zkpAttestList.ts:141-142); launched while phase B
@@ -606,18 +705,24 @@ class BatchProver:
         gk_proofs = batch_prove_membership(
             params.proof_group,
             [Commitment(pkX_pts[i], tsc(pkx_r[i])) for i in range(N)],
-            whichs, keys, [t.source for t in tapes], dev=self.dev, timer=timer,
+            whichs, keys, [t.source for t in tapes], dev=self.dev, timer=timer, mesh=mesh,
         )
 
         with stage("phase_b.unpack"):
-            # valid rows, in (i, ascending j) order, are the first K_real;
+            # valid rows, in (i, ascending j) order: the first K_real of the
+            # flat layout, the first cnt[i] of each instance's [N, E] row;
             # ``pos`` maps (i, j) to its row
             emask = np.asarray(even_mask)  # [N, 80]
             pos = np.full((N, SECPARAM), -1, np.int64)
             pos[emask] = np.arange(int(emask.sum()))
-            ints = _unp(fo, b["ints"][:K_real])  # [K_real*7]: i7..i13 per row
-            ex = b["tom_aff"][0][:K_real].cpu()  # [K_real, NSLOT, 9]
-            ey = b["tom_aff"][1][:K_real].cpu()
+            if flat:
+                ints_v = b["ints"][:K_real]
+                ex, ey = (t[:K_real].cpu() for t in b["tom_aff"])  # [K_real, NSLOT, 9]
+            else:
+                sel = torch.from_numpy(np.arange(E)[None, :] < cnt[:, None])  # [N, E]
+                ints_v = gather(mesh, b["ints"]).cpu()[sel]
+                ex, ey = (gather(mesh, t).cpu()[sel] for t in b["tom_aff"])
+            ints = _unp(fo, ints_v)  # [K_real*7]: i7..i13 per row
             tom_x = _unp(tom_ops.f, ex[:, : BK + 8])
             tom_y = _unp(tom_ops.f, ey[:, : BK + 8])
 
@@ -749,7 +854,8 @@ def batched_prove_signature_list(
     keys: list[int],
     tapes: Optional[Sequence[rng.RandomSource]] = None,
     device=None,
+    mesh=None,
 ) -> list[SignatureProofList]:
-    return BatchProver(params, device).prove(
+    return BatchProver(params, device, mesh).prove(
         msg_hashes, sig_bytes, public_keys_raw, whichs, keys, tapes
     )

@@ -17,6 +17,11 @@ contraction; the bit relations drain into the caller's MultiMult on the
 host.  Both halves give the host path's integers, so
 ``batch_prove_membership`` emits byte-identical GKProof objects for the
 same random tape.
+
+With a mesh (``parallel.mesh``) the instances are sharded over ``dp``, and
+when the mesh has a ``ring`` axis the padded ring divides across
+(:func:`_ring_sharded`), the d-values run on ``sharded_gk_dvalues`` with
+the ring elements sharded too; the outputs are gathered over ``dp``.
 """
 
 from __future__ import annotations
@@ -30,19 +35,22 @@ from ..commit.pedersen import Commitment, PedersenParams
 from ..curves.edwards import TEdwardsPoint
 from ..curves.group import hash_points
 from ..curves.instances import tomEdwards256
-from ..curves.multimult import Relation
+from ..curves.multimult import MultiMult, Relation
 from ..ops.curve_ops import comb_mixed, to_affine, tom_ops
-from ..ops.field import TOM_N, bytes_le, ring_fold
+from ..ops.field import NLIMBS, TOM_N, bytes_le, ring_fold
+from ..parallel.mesh import gather, shard_batch, sharded_gk_dvalues
 from ..proofGK.gk import GKProof, _pad, gk_statement_bind
 from ..proofGK.interpolate import interpolate
 from ..utils import rng
 from ..utils.profiling import stages
+from .batch import resolve_device
 from .fiat_shamir import challenge_rows, point_bytes
 
 __all__ = [
     "gk_dvalues_device",
     "gk_recombine_device",
     "batch_prove_membership",
+    "batch_verify_membership",
     "aggregate_membership",
 ]
 
@@ -53,6 +61,17 @@ def _ring_len(n_values: int) -> tuple[int, int]:
     pad_len = 1 << (n_values - 1).bit_length() if n_values > 1 else 1
     n = (pad_len - 1).bit_length() if pad_len > 1 else 0
     return pad_len, n
+
+
+def _ring_sharded(mesh, RING: int) -> bool:
+    """Use the ring-sharded routines when the mesh has a ``ring`` axis of
+    more than one rank that the padded ring divides across (reference
+    ``protocol/batch_gk.py:54``)."""
+    return (
+        mesh is not None
+        and mesh.shape.get("ring", 1) > 1
+        and RING % mesh.shape["ring"] == 0
+    )
 
 
 def gk_recombine_device(
@@ -116,11 +135,14 @@ def batch_prove_membership(
     tapes: Sequence[rng.RandomSource],
     dev,
     timer=None,
+    mesh=None,
 ) -> list[GKProof]:
     """Batched prover, byte-identical to gk.prove_membership per tape.
     The d-values and the 4n Pedersen commitments per instance (one comb
     batch) run on ``dev.device``; ``dev`` is the parameter set's
-    ``protocol.batch.DeviceParams``."""
+    ``protocol.batch.DeviceParams``.  With a ``mesh`` (whose device is
+    ``dev.device``) both are sharded over ``dp`` and the d-values over
+    ``ring`` when :func:`_ring_sharded`; every rank returns every proof."""
     stage = stages(timer)
     c = params.c
     order = c.order
@@ -145,23 +167,37 @@ def batch_prove_membership(
         x_batch = [hash_points([])] * N
     else:
         with stage("gk.dvalues"):
-            dvals = gk_dvalues_device(
-                eli, ai, [v.k for v in values_s], [values_s[k].k for k in indices], dev.device
-            )
+            vals = [v.k for v in values_s]
+            vidx = [values_s[k].k for k in indices]
+            if _ring_sharded(mesh, RING):
+                dv = sharded_gk_dvalues(
+                    mesh, torch.tensor(eli, dtype=torch.int32),
+                    fo.pack([a for row in ai for a in row]).reshape(N, n, -1),
+                    fo.pack(vals), fo.pack(vidx), dp_axis="dp",
+                )
+                flat_d = fo.unpack(gather(mesh, dv))
+            else:
+                dv = gk_dvalues_device(
+                    shard_batch(mesh, eli), shard_batch(mesh, ai), vals, shard_batch(mesh, vidx), dev.device
+                )
+                flat_d = [d for row in dv for d in row]
+                if mesh is not None:  # the dp blocks, in instance order
+                    flat_d = fo.unpack(gather(mesh, fo.pack(flat_d)))
+            dvals = [flat_d[i * n : (i + 1) * n] for i in range(N)]
         # interpolate (host; n x n per instance)
         di_all = [interpolate(list(range(n)), dvals[i], order) for i in range(N)]
         with stage("gk.commits"):
             vals: list[int] = []
             blinds: list[int] = []
-            for i in range(N):
+            for i in shard_batch(mesh, range(N)):
                 vals += eli[i]
                 vals += ai[i]
                 vals += [eli[i][j] * ai[i][j] % order for j in range(n)]
                 vals += list(di_all[i])
                 blinds += ri[i] + si[i] + ti[i] + rho[i]
-            cx, cy = _gk_commit_device(
+            cx, cy = (gather(mesh, t) for t in _gk_commit_device(
                 dev.tabs(), fo.pack(vals, dev.device), fo.pack(blinds, dev.device)
-            )
+            ))
             xs, ys = tom_ops.f.unpack(cx), tom_ops.f.unpack(cy)
             commit_pts = [
                 [TEdwardsPoint(tomEdwards256, xs[i * 4 * n + t], ys[i * 4 * n + t])
@@ -189,6 +225,53 @@ def batch_prove_membership(
                 zd = (zd - rho[i][j] * pow(x, j, order)) % order
             proofs.append(GKProof(cl, ca, cb, cd, f, za, zb, c.new_scalar(zd)))
     return proofs
+
+
+def batch_verify_membership(
+    params: PedersenParams,
+    coms: Sequence,  # points
+    initial_values: list[int],
+    proofs: Sequence[GKProof],
+    device=None,
+) -> list[bool]:
+    """Batched GK verifier (reference ``protocol/batch_gk.py:319``): the
+    ring recombination of every proof on ``device`` (CUDA unless the
+    caller names another; :func:`gk_recombine_device`), then one host
+    ``MultiMult`` of the bit relations per proof.  A proof whose arrays
+    are not n long is False."""
+    device = resolve_device(device)
+    c = params.c
+    order = c.order
+    N = len(proofs)
+    values_s = _pad(initial_values, c)
+    n = _ring_len(len(initial_values))[1]
+    xs, ok = [], [True] * N
+    for i, proof in enumerate(proofs):
+        if any(len(arr) != n for arr in (proof.cl, proof.ca, proof.cb, proof.cd, proof.f, proof.za, proof.zb)):
+            ok[i] = False
+            xs.append(0)
+        else:
+            xs.append(gk_statement_bind(
+                hash_points(proof.cl + proof.ca + proof.cb + proof.cd), coms[i], values_s,
+            ))
+    f_ints = [proofs[i].f[j].k if ok[i] else 0 for i in range(N) for j in range(n)]
+    xf_ints = [(xs[k // n] - v) % order for k, v in enumerate(f_ints)]
+    totals = fo.unpack(gk_recombine_device(
+        fo.pack(f_ints, device).reshape(N, n, NLIMBS),
+        fo.pack(xf_ints, device).reshape(N, n, NLIMBS),
+        fo.pack([v.k for v in values_s], device),
+    ))
+    results = []
+    for i, proof in enumerate(proofs):
+        if not ok[i]:
+            results.append(False)
+            continue
+        multi = MultiMult(c)
+        multi.add_known(params.g)
+        multi.add_known(params.h)
+        aggregate_membership(params, coms[i], n, proof, xs[i], totals[i], multi)
+        results.append(multi.evaluate().is_identity())
+    return results
 
 
 def aggregate_membership(params, com, n: int, proof, x: int,

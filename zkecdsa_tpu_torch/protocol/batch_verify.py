@@ -21,10 +21,19 @@ difference: structural errors that make the scalar verifier *raise*
 (missing optional ExpProof fields, points at infinity, secparam >
 len(expProof)) mark just that instance False here - a batch must not die
 on one malformed proof.
+
+With a mesh (``parallel.mesh``) every rank runs the host stages on the
+whole batch and the device stages on its ``dp`` slice (phase V, the GK
+recombination - ring-sharded too when the mesh has a ``ring`` axis - and
+the MSM rows or sub-rows); device outputs are gathered over ``dp``.  The
+verifier's own random draws (the round sample, the combined check's r_i)
+must then agree across ranks: each verify runs on a DRBG seeded with 32
+bytes from the mesh's first rank.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -51,13 +60,15 @@ from ..ops.curve_ops import (
 )
 from ..ops.field import TOM_N, bytes_le
 from ..ops.msm_bucket import bucket_bytes, bucket_fold, bucket_sums, pick_window, window_digits
+from ..parallel.mesh import from_first_rank, gather, shard_batch, sharded_gk_recombine
 from ..proofGK.gk import _pad, gk_statement_bind
 from ..runtime import native
+from ..utils import rng
 from ..utils.config import get_config
 from ..utils.profiling import stages
 from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
-from .batch import _nist_pt, _pk_scalars, _tom_pt, _unp, device_params_for, resolve_device
-from .batch_gk import _ring_len, aggregate_membership, gk_recombine_device
+from .batch import _nist_pt, _pk_scalars, _tom_pt, _unp, device_params_for, mesh_device, resolve_device
+from .batch_gk import _ring_len, _ring_sharded, aggregate_membership, gk_recombine_device
 
 __all__ = ["BatchVerifier", "batch_verify_signature_list", "vphase"]
 
@@ -143,6 +154,7 @@ def _batched_msm_identity(
     device,
     t_static: int | None = None,
     timer=None,
+    mesh=None,
 ) -> np.ndarray:
     """Is sum s_i P_i the identity, per row?  Rows are padded with
     (identity, 0) to a shared length: the challenge-independent worst-case
@@ -153,7 +165,10 @@ def _batched_msm_identity(
 
     Backend: the Straus kernel, or the bucket (Pippenger) kernels when T
     reaches ``Config.pippenger_min_t`` (0, the default, never): they keep
-    no [T, 16] window table, only the [D, 2^w] bucket sums of a row."""
+    no [T, 16] window table, only the [D, 2^w] bucket sums of a row.
+
+    With a ``mesh`` each rank checks its dp slice of the rows (in
+    memory-budget chunks) and the verdicts are gathered."""
     ops = _OPS[group.name]
     N = len(rows)
     if N == 0:
@@ -166,7 +181,7 @@ def _batched_msm_identity(
     if tmax > T:  # t_static overflow: split off the oversized rows
         over = [i for i, (p, _) in enumerate(rows) if len(p) > T]
         fit = [(p, s) if len(p) <= T else ([], []) for (p, s) in rows]
-        ok = _batched_msm_identity(group, fit, device, t_static=t_static)
+        ok = _batched_msm_identity(group, fit, device, t_static=t_static, mesh=mesh)
         ok_over = _batched_msm_identity(group, [rows[i] for i in over], device)
         for k, i in enumerate(over):
             ok[i] = ok_over[k]
@@ -186,18 +201,18 @@ def _batched_msm_identity(
             ).astype(np.int64))
             arr[pos] = ops.pack_points(real)
     with stage("msm.upload"):
-        arr = arr.reshape(N, T, ops.NCOORD, -1).to(device)
+        arr = shard_batch(mesh, arr.reshape(N, T, ops.NCOORD, -1)).to(device)
     min_t = get_config().pippenger_min_t
     window = pick_window(T) if min_t and T >= min_t else None
     with stage("msm.digits"):
         if window is None:
-            digits = _u8(nibble_digits(scs).reshape(N, T, 64), device)
+            digits = _u8(shard_batch(mesh, nibble_digits(scs).reshape(N, T, 64)), device)
         else:
             srows = [scs[i * T : (i + 1) * T] for i in range(N)]
-            digits = torch.from_numpy(window_digits(srows, T, window)).to(device)
+            digits = torch.from_numpy(shard_batch(mesh, window_digits(srows, T, window))).to(device)
     with stage("msm.device"):
         sums = _msm_rows(ops, arr, digits) if window is None else _bucket_rows(ops, arr, digits, window)
-        return torch.cat([ops.is_identity(s) for s in sums]).cpu().numpy()
+        return gather(mesh, torch.cat([ops.is_identity(s) for s in sums])).cpu().numpy()
 
 
 _COMB_W = 8192  # combined-MSM sub-row width (see _combined_msm_identity)
@@ -209,6 +224,7 @@ def _combined_msm_identity(
     device,
     t_static: int | None = None,
     timer=None,
+    mesh=None,
 ) -> np.ndarray:
     """Hierarchical batch identity check.
 
@@ -220,7 +236,13 @@ def _combined_msm_identity(
     combined sum survives with probability 1 - 1/order (the argument of
     Relation.drain, multimult.ts:147-174).  Only when the combined check
     fails do the per-row checks run, to say which rows failed.  Batches
-    too small to fill four sub-rows take the per-row path directly."""
+    too small to fill four sub-rows take the per-row path directly.
+
+    With a ``mesh`` the sub-rows (a multiple of lcm(4, dp)) are split over
+    ``dp``; each rank sums its share, and the partial points are gathered
+    and folded with ``ec_add``, so every rank reaches the same verdict.
+    The r_i agree across ranks because the verify runs on a DRBG the ranks
+    share (see :class:`BatchVerifier`)."""
     stage = stages(timer)
     N = len(rows)
     if N == 0:
@@ -229,7 +251,8 @@ def _combined_msm_identity(
     order = group.order
     total = sum(len(p) for p, _ in rows)
     if total < 4 * _COMB_W:
-        return _batched_msm_identity(group, rows, device, t_static=t_static, timer=timer)
+        return _batched_msm_identity(group, rows, device, t_static=t_static, timer=timer, mesh=mesh)
+    q = math.lcm(4, mesh.shape["dp"]) if mesh is not None else 4
     with stage("msm.combine_host"):
         pts: list[Point] = []
         scs: list[int] = []
@@ -237,7 +260,7 @@ def _combined_msm_identity(
             r = big.rnd(order)
             pts.extend(p)
             scs.extend(r * v % order for v in s)
-        k = 4 * -(-total // (4 * _COMB_W))  # sub-rows, multiple of 4
+        k = q * -(-total // (q * _COMB_W))  # sub-rows, a multiple of q
         pad = k * _COMB_W - total
         arr = torch.cat([
             ops.pack_points(pts),
@@ -245,29 +268,40 @@ def _combined_msm_identity(
         ])
         scs.extend([0] * pad)
     with stage("msm.upload"):
-        arr = arr.reshape(k, _COMB_W, ops.NCOORD, -1).to(device)
+        arr = shard_batch(mesh, arr.reshape(k, _COMB_W, ops.NCOORD, -1)).to(device)
     with stage("msm.digits"):
-        digits = _u8(nibble_digits(scs).reshape(k, _COMB_W, 64), device)
+        digits = _u8(shard_batch(mesh, nibble_digits(scs).reshape(k, _COMB_W, 64)), device)
     with stage("msm.device"):
-        parts = torch.cat(_msm_rows(ops, arr, digits))  # [k, C, 9]
-        all_ok = bool(ops.is_identity(sum_reduce(ops, parts, axis=0)))
+        parts = torch.cat(_msm_rows(ops, arr, digits))  # [k/dp, C, 9]
+        local = sum_reduce(ops, parts, axis=0)
+        all_ok = bool(ops.is_identity(sum_reduce(ops, gather(mesh, local[None]), axis=0)))
     if all_ok:
         return np.ones(N, dtype=bool)
     # attribution path: some row failed - per-row checks
-    return _batched_msm_identity(group, rows, device, t_static=t_static, timer=timer)
+    return _batched_msm_identity(group, rows, device, t_static=t_static, timer=timer, mesh=mesh)
 
 
 class BatchVerifier:
     """Verifies batches of ``SignatureProofList`` against one parameter set
     and one ring, on ``device`` (CUDA unless the caller names another;
-    ``device="cpu"`` runs the plain PyTorch versions)."""
+    ``device="cpu"`` runs the plain PyTorch versions).
+
+    With a ``mesh`` (``parallel.mesh``) the proofs are sharded over its
+    ``dp`` axis (the batch must divide by its size) and the GK ring over
+    its ``ring`` axis when it has one; every rank calls :meth:`verify`
+    with the same inputs and gets every verdict.  Each verify then draws
+    its randomness from a DRBG seeded with 32 bytes from the mesh's first
+    rank, so that the ranks sample the same rounds."""
 
     # Largest sub-batch one verify pass handles; beyond it the batch
     # chunks transparently (proofs are independent).
     MAX_CHUNK = 256
 
-    def __init__(self, params: SystemParametersList, device=None) -> None:
+    def __init__(self, params: SystemParametersList, device=None, mesh=None) -> None:
+        if mesh is not None:
+            device = mesh_device(mesh, device, "BatchVerifier")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = params
         self.dev = device_params_for(params, self.device)
         self.tabs = self.dev.tabs()
@@ -280,12 +314,28 @@ class BatchVerifier:
         timer=None,
     ) -> list[bool]:
         N_all = len(proofs)
+        mesh = self.mesh
         if N_all > self.MAX_CHUNK:
+            step = self.MAX_CHUNK
+            if mesh is not None:  # dp-divisible chunks keep every shard even
+                dp = mesh.shape["dp"]
+                step = max(dp, step - step % dp)
             out: list[bool] = []
-            for lo in range(0, N_all, self.MAX_CHUNK):
-                hi = min(lo + self.MAX_CHUNK, N_all)
+            for lo in range(0, N_all, step):
+                hi = min(lo + step, N_all)
                 out.extend(self.verify(msg_hashes[lo:hi], keys, proofs[lo:hi], timer=timer))
             return out
+        if mesh is None:
+            return self._verify(msg_hashes, keys, proofs, timer)
+        seed = from_first_rank(mesh, torch.tensor(list(rng.random_bytes(32)), dtype=torch.uint8))
+        with rng.scoped(rng.DeterministicSource(bytes(seed.cpu().tolist()))):
+            return self._verify(msg_hashes, keys, proofs, timer)
+
+    def _verify(self, msg_hashes, keys, proofs, timer) -> list[bool]:
+        mesh = self.mesh
+
+        def mine(x):  # this rank's dp slice (everything without a mesh)
+            return shard_batch(mesh, x)
 
         stage = stages(timer)
         params = self.params
@@ -346,19 +396,20 @@ class BatchVerifier:
                         m_sc[i][j] = rp.z.k
                         rb[i][j] = (rp.r1.k, rp.r2.k)
 
-        # ---- device phase V ----
+        # ---- device phase V, on this rank's dp slice ----
         with stage("verify.device"):
             v = vphase(
                 self.tabs,
-                p256_ops.pack_points([p.R for p in proofs], device),
-                _u8(nibble_digits(z1s), device),
-                _u8(nibble_digits([m for row in m_sc for m in row]).reshape(N, S, 64), device),
-                torch.tensor(sel_bit, dtype=torch.bool, device=device),
+                p256_ops.pack_points([p.R for p in mine(proofs)], device),
+                _u8(mine(nibble_digits(z1s)), device),
+                _u8(mine(nibble_digits([m for row in m_sc for m in row]).reshape(N, S, 64)), device),
+                torch.tensor(mine(sel_bit), dtype=torch.bool, device=device),
                 _u8(
-                    byte_digits([x for row in rb for pair in row for x in pair]).reshape(N, S, 2, 32),
+                    mine(byte_digits([x for row in rb for pair in row for x in pair]).reshape(N, S, 2, 32)),
                     device,
                 ),
             )
+            v = {k: tuple(gather(mesh, t) for t in ts) for k, ts in v.items()}
 
         with stage("verify.unpack"):
             # the sampled round's affine coords feed relTx/relTy only on
@@ -407,11 +458,13 @@ class BatchVerifier:
                 [(gk_x[i] - f_ints[i][j]) % t_ord for j in range(n)]
                 for i in range(N)
             ]
-            tot_dev = gk_recombine_device(
-                _pk_scalars(fo, [x for row in f_ints for x in row], device).reshape(N, n, -1),
-                _pk_scalars(fo, [x for row in xf_ints for x in row], device).reshape(N, n, -1),
-                _pk_scalars(fo, [v_.k for v_ in values_s], device),
-            )
+            f_t = _pk_scalars(fo, [x for row in f_ints for x in row], device).reshape(N, n, -1)
+            xf_t = _pk_scalars(fo, [x for row in xf_ints for x in row], device).reshape(N, n, -1)
+            vals_t = _pk_scalars(fo, [v_.k for v_ in values_s], device)
+            if _ring_sharded(mesh, RING) and n > 0:
+                tot_dev = gather(mesh, sharded_gk_recombine(mesh, f_t, xf_t, vals_t, dp_axis="dp"))
+            else:
+                tot_dev = gather(mesh, gk_recombine_device(mine(f_t), mine(xf_t), vals_t))
             totals = _unp(fo, tot_dev)
 
         # ---- host: relation assembly per proof ----
@@ -449,8 +502,8 @@ class BatchVerifier:
 
         # ---- device MSMs (one combined check per curve); stages msm.* ----
         t_w, t_n = self._t_static(n, S)
-        ok_w = _combined_msm_identity(pg.c, rows_w, device, t_static=t_w, timer=timer)
-        ok_n = _combined_msm_identity(p256, rows_n, device, t_static=t_n, timer=timer)
+        ok_w = _combined_msm_identity(pg.c, rows_w, device, t_static=t_w, timer=timer, mesh=mesh)
+        ok_n = _combined_msm_identity(p256, rows_n, device, t_static=t_n, timer=timer, mesh=mesh)
         return [bool(ok[i] and ok_w[i] and ok_n[i]) for i in range(N)]
 
     @staticmethod
@@ -527,5 +580,6 @@ def batch_verify_signature_list(
     keys: list[int],
     proofs: Sequence[SignatureProofList],
     device=None,
+    mesh=None,
 ) -> list[bool]:
-    return BatchVerifier(params, device).verify(msg_hashes, keys, proofs)
+    return BatchVerifier(params, device, mesh).verify(msg_hashes, keys, proofs)
