@@ -18,7 +18,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    two calls apart; ``comb_mixed`` at its four calls under ``comb_plan``'s
    geometry and under the other one); the launches per prove at the
    checked shapes must add up to the counts of phase 4a, and
-   ``straus_msm``'s per verify to those of phase 4b;
+   ``straus_msm``'s per verify to those of phase 4b; the parameter
+   set-up's kernels (``comb8_bases``, ``comb8_entries``) come first, at
+   its shapes (the P-256 h, R = 1; the Tom-256 g and h, R = 2), held
+   against their plain versions and against the host oracle (the
+   Python-integer table functions of ``DeviceParams``);
+4. set-up: ``DeviceParams`` from a cold ``device_params_for`` cache, on
+   the kernels (launch counts set to 0 just before and read just after:
+   one launch of each kernel a curve), its tables against the host
+   oracle's, and both times;
 4a. the prover: ``BatchProver.prove`` on N=256 distinct instances at ring
    2^12 (instance i proves key i of the ring on tape SEED+100+i), one
    warm-up and three timed reps on the same tapes, each giving the same
@@ -40,8 +48,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``device_msm_backend()`` on those 9 proofs, one at a time in this
    process: the host verifier's verdicts, 3 ``straus_msm`` launches per
    honest proof and 1 for the tampered one;
+4e. the hardened configuration (``hardened_pedersen = hardened_gk = 1``)
+   at full width: a fresh parameter set (h by hash-to-curve), its
+   ``DeviceParams`` on the kernels against the host oracle, one prove of
+   the N instances after a warm-up (proofs 0..1 byte for byte against the
+   host prover's under the same flags, in the worker processes), one
+   verify (N x True), and the same batch with ``hardened_gk = 0`` (N x
+   False); the default config is restored afterwards;
 5. the mesh path (``zkecdsa_tpu_torch.parallel``), on 4a's inputs and
-   tapes, in ranks spawned by ``parallel.launch``; each rank proves and
+   tapes, in ranks spawned by ``parallel.launch``; each rank builds its
+   ``DeviceParams`` on the kernels (timed, launches counted), proves and
    verifies (a warm-up, then one run with the launch counts set to 0
    just before it and read just after), must give 4a's proof bytes, 256 x
    True, and False at exactly the tampered position:
@@ -108,6 +124,8 @@ MESH_MSM_T = 8192  # phase 5c sharded_msm Tom-256 terms
 # path B's one-row MSMs of one proof: GK membership (4n + 4), the exp
 # relations on Tom-256 (a few hundred) and on P-256 (3 + 2 per round)
 SCALAR_MSM = (("tomEdwards256", 52), ("tomEdwards256", 380), ("p256", 43))
+COMB_W, COMB_E = 32, 256  # comb tables: 8-bit windows, multiples a window
+K_HARD = 2  # phase 4e: proofs also made by the host prover with both flags on
 
 # Bounds (H100 SXM, NVIDIA data sheet, at the full 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -153,8 +171,16 @@ def _straus_bound(ops, pts, dig) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
+def _set_hardened(flag: int) -> None:
+    """Both hardened modes on (1) or off (0) in this process: a pool
+    worker takes jobs of either kind, and the config is process-global."""
+    from zkecdsa_tpu_torch.utils.config import get_config, set_config
+
+    set_config(dataclasses.replace(get_config(), hardened_pedersen=flag, hardened_gk=flag))
+
+
 def _prove_one(job):
-    params_json, mh, sig, pub, which, ring, seed = job
+    params_json, mh, sig, pub, which, ring, seed, hardened = job
     from zkecdsa_tpu_torch.serde import read_json, write_json
     from zkecdsa_tpu_torch.utils import rng
     from zkecdsa_tpu_torch.zkp_attest_list import (
@@ -163,6 +189,7 @@ def _prove_one(job):
         prove_signature_list,
     )
 
+    _set_hardened(hardened)
     params = read_json(SystemParametersList, params_json)
     with rng.deterministic(seed):
         proof = prove_signature_list(params, mh, sig, pub, which, ring)
@@ -175,6 +202,8 @@ def _kernel_fns() -> dict:
     from zkecdsa_tpu_torch.ops.curve_ops import (
         comb4_bases,
         comb4_entries,
+        comb8_bases,
+        comb8_entries,
         comb_mixed,
         comb_weier,
         ec_add,
@@ -190,12 +219,13 @@ def _kernel_fns() -> dict:
     return {fn.__name__: fn for fn in (
         field_mul, ec_add, to_affine, straus_msm, comb_mixed,
         shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
-        bucket_sums, bucket_fold, msm_ladder, field_sum,
+        bucket_sums, bucket_fold, msm_ladder, field_sum, comb8_bases, comb8_entries,
     )}
 
 
 def _host_verify(job):
     params_json, mh, ring, proof_json, seed = job
+    _set_hardened(0)
     from zkecdsa_tpu_torch.serde import read_json
     from zkecdsa_tpu_torch.utils import rng
     from zkecdsa_tpu_torch.zkp_attest_list import (
@@ -909,6 +939,83 @@ def check_mesh_kernels(dev, rs, log) -> dict:
     return {"field_sum": recs}
 
 
+def _host_tables(params):
+    """The comb tables of a parameter set from the Python-integer host
+    oracle: (P-256 table of h, Tom-256 MixedComb of g then h)."""
+    from zkecdsa_tpu_torch.ops.curve_ops import MixedComb
+    from zkecdsa_tpu_torch.protocol.batch import DeviceParams
+
+    pg = params.proof_group
+    return (DeviceParams._host_comb_weier(params.nist_group.h),
+            MixedComb.pack(DeviceParams._host_comb_mixed(pg.g) + DeviceParams._host_comb_mixed(pg.h)))
+
+
+def _tables_exact(name: str, tabs, host) -> None:
+    """A DeviceParams' tables against the host oracle's, exactly."""
+    host_n, host_t = host
+    _exact(name, [(tabs["h_n8"].cpu(), host_n), (tabs["gh_t8"].canon.cpu(), host_t.canon),
+                  (tabs["gh_t8"].mont.cpu(), host_t.mont)])
+
+
+def check_setup_kernels(dev, params, log) -> tuple[dict, tuple]:
+    """Phase 3, slice 7: ``comb8_bases`` and ``comb8_entries`` at the
+    parameter set-up's shapes (the P-256 h, R = 1; the Tom-256 g and h,
+    R = 2), each held exactly against its plain version on the card and
+    against the host oracle.  The bound counts the least work of the
+    algorithm: 248 doublings a base; 7 doublings and 254 additions a
+    window, and for the affine step one batch inversion (3 products an
+    entry and one inverse a call) and the products of x, y (and of the
+    rows x*y, d*x*y, a*x); the bases read, the tables written once.
+    Returns ({name: [shape record, ...]}, the host oracle's tables)."""
+    import torch
+
+    from zkecdsa_tpu_torch.ops.curve_ops import comb8_bases, comb8_entries, p256_ops, tom_ops
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+
+    pb = NLIMBS * 4
+    t0 = time.perf_counter()
+    host = _host_tables(params)
+    host_s = time.perf_counter() - t0
+    host_n, host_t = host
+    shapes: dict[str, list] = {}
+    pg = params.proof_group
+    cases = (("P-256 h", p256_ops, [params.nist_group.h], MM_WEIER_ADD, MM_WEIER_DBL, 3 + 2),
+             ("Tom-256 g, h", tom_ops, [pg.g, pg.h], MM_EDW_ADD, MM_EDW_DBL, 3 + 3 + 2))
+    for what, ops, pts, mm_add, mm_dbl, mm_affine in cases:
+        R, C = len(pts), ops.NCOORD
+        P = ops.pack_points(pts, dev)
+        call = f"{what}, [{R}] (DeviceParams)"
+        bases, rec = _case("comb8_bases", call, lambda: comb8_bases(ops, P), lambda: ops.comb8_bases(P),
+                           _bound(R * 31 * 8 * mm_dbl, R * C * pb + R * COMB_W * C * pb), 10, log, 0)
+        # the host oracle: base j of each point is 2^(8j) * point, compared affine
+        want = ops.pack_points([pt.mul(pt.group.new_scalar(1 << (8 * j))) for pt in pts for j in range(COMB_W)], dev)
+        _affine_exact(f"comb8_bases {call} vs the host oracle", ops, bases.reshape(-1, C, NLIMBS), want)
+        rec.update(launches_per_setup=1)
+        shapes.setdefault("comb8_bases", []).append(rec)
+
+        e = ops.f.p - 2
+        inv_mm = e.bit_length() - 1 + bin(e).count("1") - 1
+        n_ent = R * COMB_W * COMB_E
+        nc = tom_ops.MIXED_NC if ops is tom_ops else C
+        forms = 2 if ops is tom_ops else 1
+        bound = _bound(R * COMB_W * (7 * mm_dbl + 254 * mm_add) + n_ent * mm_affine + inv_mm,
+                       R * COMB_W * C * pb + forms * n_ent * nc * pb)
+        call = f"{what}, [{R}, {COMB_W}] window bases (DeviceParams)"
+        got, rec = _case("comb8_entries", call, lambda: comb8_entries(ops, bases),
+                         lambda: ops.comb8_entries(bases), bound, 10, log, 0)
+        if ops is tom_ops:
+            _exact(f"comb8_entries {call} vs the host oracle",
+                   [(got[0].reshape(host_t.canon.shape).cpu(), host_t.canon),
+                    (got[1].reshape(host_t.mont.shape).cpu(), host_t.mont)])
+        else:
+            _exact(f"comb8_entries {call} vs the host oracle", [(got[0].cpu(), host_n)])
+        rec.update(launches_per_setup=1)
+        shapes.setdefault("comb8_entries", []).append(rec)
+    log(f"comb8_bases, comb8_entries: exact against their plain versions and the host oracle "
+        f"({host_s:.3f} s for the host oracle's tables)")
+    return shapes, host
+
+
 def _sharded_checks(mesh, dparams, log) -> dict:
     """Phase 5c in one rank: the sharded routines at full width against
     their unsharded counterparts on this rank (the same kernels on the
@@ -997,13 +1104,19 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     mesh = make_mesh_2d(*job["mesh"], backend=job["backend"])
     params = read_json(SystemParametersList, job["params"])
+    fns = _kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     dparams = device_params_for(params, mesh.device)
     dparams.tabs()
     torch.cuda.synchronize()
     params_s = time.perf_counter() - t0
+    launches_setup = {k: fn.launches for k, fn in fns.items()}
+    missing = [k for k in job["setup_path"] if launches_setup[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the rank's set-up path: {missing}")
     bp, bv = BatchProver(params, mesh=mesh), BatchVerifier(params, mesh=mesh)
-    fns = _kernel_fns()
 
     def counted(what, run, path):
         run()
@@ -1045,7 +1158,7 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
     report = dict(
         rank=rank, coords=[mesh.coord("dp"), mesh.coord("ring")], device=str(mesh.device),
         backend=dist.get_backend(), device_params_s=params_s, prove_s=prove_s, verify_s=verify_s,
-        tampered_s=tampered_s, sha256=sha, false_at=false_at,
+        tampered_s=tampered_s, sha256=sha, false_at=false_at, launches_setup=launches_setup,
         launches_prove=launches_prove, launches_verify=launches_verify,
     )
     log(json.dumps({k: v for k, v in report.items() if not k.startswith("launches")}))
@@ -1079,8 +1192,9 @@ def main() -> int:
     import numpy as np
 
     from zkecdsa_tpu_torch import _build, ecdsa
+    from zkecdsa_tpu_torch.commit.pedersen import hash_to_point
     from zkecdsa_tpu_torch.ops.msm_bucket import bucket_fold, bucket_sums
-    from zkecdsa_tpu_torch.protocol.batch import BatchProver, device_params_for
+    from zkecdsa_tpu_torch.protocol.batch import BatchProver, _device_params_cached, device_params_for
     from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
     from zkecdsa_tpu_torch.protocol.verify import device_msm_backend
     from zkecdsa_tpu_torch.serde import read_json, write_json
@@ -1116,20 +1230,35 @@ def main() -> int:
     with rng.deterministic(SEED + 1):
         sigs = [ecdsa.sign(kp, m) for kp, m in zip(kps, msgs)]
     params_json = write_json(type(params), params)
+    # phase 4e's parameter set: both hardened modes on (h by hash-to-curve)
+    cfg = get_config()
+    set_config(dataclasses.replace(cfg, hardened_pedersen=1, hardened_gk=1))
+    try:
+        with rng.deterministic(SEED + 7):
+            params_h = generate_params_list()
+    finally:
+        set_config(cfg)
+    params_h_json = write_json(type(params_h), params_h)
     ctx = multiprocessing.get_context("spawn")
     workers = min(K, os.cpu_count() or 1)
     with ctx.Pool(workers) as pool:
         t0 = time.perf_counter()
         proving = pool.map_async(
             _prove_one,
-            [(params_json, mhs[i], sigs[i], pubs[i], i, ring, SEED + 100 + i) for i in range(K)],
+            [(params_json, mhs[i], sigs[i], pubs[i], i, ring, SEED + 100 + i, 0) for i in range(K)],
+        )
+        proving_h = pool.map_async(
+            _prove_one,
+            [(params_h_json, mhs[i], sigs[i], pubs[i], i, ring, SEED + 100 + i, 1) for i in range(K_HARD)],
         )
 
-        # -- phase 3: kernels against their plain versions -----------------
+        # -- phase 3: kernels against their plain versions, the set-up's
+        #    first: every other check reads tables that they build --------
+        shapes, host_tables = check_setup_kernels(dev, params, log)
         dparams = device_params_for(params, dev).tabs()
         rs = np.random.RandomState(SEED)
-        shapes = {k: v if isinstance(v, list) else [v]
-                  for k, v in check_kernels(dev, dparams, rs, log).items()}
+        for k, v in check_kernels(dev, dparams, rs, log).items():
+            shapes.setdefault(k, []).extend(v if isinstance(v, list) else [v])
         for k, recs in check_prover_kernels(dev, dparams, rs, log).items():
             shapes.setdefault(k, []).extend(recs)
         msm_shapes, crossover = check_msm_kernels(dev, rs, log)
@@ -1142,6 +1271,7 @@ def main() -> int:
             f"({workers} processes)")
 
         counters = _kernel_fns()
+        setup_path = ("comb8_bases", "comb8_entries")
         prove_path = ("field_mul", "ec_add", "to_affine", "comb_mixed", "shamir",
                       "comb4_bases", "comb4_entries", "mul_comb4", "comb_weier", "chord")
         verify_path = ("field_mul", "ec_add", "to_affine", "straus_msm", "comb_mixed")
@@ -1187,6 +1317,39 @@ def main() -> int:
             if missing:
                 raise AssertionError(f"kernels not launched on the {name} path: {missing}")
             return out, wall, launches, timer, curves
+
+        def setup(what, prm):
+            """DeviceParams of ``prm`` from a cold cache on the kernels:
+            (its tables, seconds, launches), the launches counted from 0."""
+            _device_params_cached.cache_clear()
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tabs = device_params_for(prm, dev).tabs()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_counts()
+            missing = [k for k in setup_path if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched on the {what} set-up path: {missing}")
+            return tabs, secs, launches
+
+        # -- phase 4, set-up: DeviceParams from a cold cache on the kernels,
+        #    against the host oracle's seconds for the same tables ---------
+        tabs, setup_s, launches_setup = setup("default", params)
+        _tables_exact("DeviceParams (default) vs the host oracle", tabs, host_tables)
+        for k in setup_path:
+            at_shapes = sum(r["launches_per_setup"] for r in shapes[k])
+            if at_shapes != launches_setup[k]:
+                raise AssertionError(
+                    f"{k}: {launches_setup[k]} launches in one set-up, {at_shapes} at the checked shapes"
+                )
+        t0 = time.perf_counter()
+        _host_tables(params)
+        host_setup_s = time.perf_counter() - t0
+        log(f"setup: DeviceParams {setup_s:.4f} s from a cold cache on the kernels (launches "
+            + json.dumps({k: launches_setup[k] for k in setup_path}) + f"), host oracle {host_setup_s:.3f} s "
+            f"for the same tables, exact; on {smi}")
 
         # -- phase 4a: the prover --------------------------------------------
         bp = BatchProver(params, dev)
@@ -1263,7 +1426,6 @@ def main() -> int:
             raise AssertionError(f"the attribution path did not run: {ttimer.counts}")
 
         # -- phase 4c, path A: the verifier on the bucket backend -------------
-        cfg = get_config()
         set_config(dataclasses.replace(cfg, pippenger_min_t=PIPPENGER_MIN_T))
         try:
             _, bucket_wall, launches_bucket, btimer, bcurves = timed_reps(
@@ -1299,6 +1461,7 @@ def main() -> int:
         jobs.append((params_json, mhs[TAMPER_AT], ring,
                      write_json(SignatureProofList, bad), SEED + 300))
         host_res = pool.map(_host_verify, jobs)
+        host_h_jsons = proving_h.get(timeout=900)
         pool.close()
         pool.join()
     host = [ok for ok, _ in host_res]
@@ -1340,6 +1503,60 @@ def main() -> int:
     log(f"slice: scalar verify_signature_list at ring {RING}: median {dev_med:.3f} s per honest proof "
         f"on the device MSM backend, {host_med:.3f} s on the host, on {smi}")
 
+    # -- phase 4e: the hardened configuration at full width: both flags on,
+    #    a fresh parameter set (h by hash-to-curve on both curves), its
+    #    DeviceParams on the kernels against the host oracle, one prove
+    #    after a warm-up (proofs 0..K_HARD-1 against the host prover's bytes
+    #    under the same flags, made in the pool), one verify, and the same
+    #    batch verified with hardened_gk = 0: every proof False -----------
+    set_config(dataclasses.replace(cfg, hardened_pedersen=1, hardened_gk=1))
+    try:
+        if not (params_h.proof_group.h.eq(hash_to_point(params_h.proof_group.c, params_h.proof_group.g.to_bytes()))
+                and params_h.nist_group.h.eq(hash_to_point(params_h.nist_group.c, params_h.nist_group.g.to_bytes()))):
+            raise AssertionError("4e: the hardened parameter set's h is not the hash-to-curve point of g")
+        tabs_h, setup_h_s, launches_setup_h = setup("hardened", params_h)
+        _tables_exact("DeviceParams (hardened) vs the host oracle", tabs_h, _host_tables(params_h))
+        bph, bvh = BatchProver(params_h, dev), BatchVerifier(params_h, dev)
+
+        def prove_h():
+            tapes = [rng.DeterministicSource(SEED + 100 + i) for i in range(N)]
+            return bph.prove(mhs, sigs, pubs, list(range(N)), ring, tapes)
+
+        prove_h()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        proofs_h = prove_h()
+        torch.cuda.synchronize()
+        prove_h_s = time.perf_counter() - t0
+        wire_h = [write_json(SignatureProofList, p) for p in proofs_h]
+        if wire_h[:K_HARD] != host_h_jsons:
+            raise AssertionError("4e: hardened batched proofs differ from the hardened host prover's bytes")
+        if wire_h[0] == wire[0]:
+            raise AssertionError("4e: the hardened proof equals the default one")
+        t0 = time.perf_counter()
+        ok_h = bvh.verify(mhs, ring, proofs_h)
+        torch.cuda.synchronize()
+        verify_h_s = time.perf_counter() - t0
+        launches_hard = read_counts()  # the prove and the verify
+        missing = [k for k in prove_path + verify_path if launches_hard[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the hardened path: {missing}")
+        if ok_h != [True] * N:
+            raise AssertionError(f"4e: the hardened verify rejected honest proofs: {ok_h.count(False)} False")
+        set_config(dataclasses.replace(cfg, hardened_pedersen=1, hardened_gk=0))
+        ok_unbound = bvh.verify(mhs, ring, proofs_h)
+        if any(ok_unbound):
+            raise AssertionError(f"4e: hardened_gk = 0 accepted {ok_unbound.count(True)} hardened proofs")
+    finally:
+        set_config(cfg)
+    for k in setup_path:
+        launches_hard[k] = launches_setup_h[k]
+    log(f"4e hardened (hardened_pedersen = hardened_gk = 1): DeviceParams {setup_h_s:.4f} s on the kernels, "
+        f"exact against the host oracle; prove {prove_h_s:.3f} s ({N / prove_h_s:.2f} proofs/s), proofs "
+        f"0..{K_HARD - 1} equal the hardened host prover's byte for byte; verify {verify_h_s:.3f} s "
+        f"({N / verify_h_s:.2f} proofs/s), {N} x True; with hardened_gk = 0 {N} x False; on {smi}")
+
     # -- phase 5: the mesh path, in spawned ranks (5a NCCL on one rank, 5b
     #    four gloo ranks sharing the card, with 5c in them) ------------------
     from zkecdsa_tpu_torch.parallel import launch
@@ -1353,7 +1570,8 @@ def main() -> int:
         reports = launch.run(
             _mesh_rank, dp * rg, backend=backend, timeout=MESH_TIMEOUT,
             args=(dict(job, name=name, backend=backend, mesh=(dp, rg), checks=checks,
-                       prove_path=prove_path + ring_path, verify_path=verify_path + ring_path),),
+                       setup_path=setup_path, prove_path=prove_path + ring_path,
+                       verify_path=verify_path + ring_path),),
         )
         mesh_runs[name] = reports
         walls = [(r["prove_s"], r["verify_s"]) for r in reports]
@@ -1362,7 +1580,9 @@ def main() -> int:
             f"every rank: 4a's proof bytes (sha256 {proof_sha[:16]}...), {N} x True, tampered False at "
             f"{reports[0]['false_at']}")
         for r in reports:
-            log(f"{name} rank {r['rank']} {r['coords']}: DeviceParams {r['device_params_s']:.2f} s, prove "
+            log(f"{name} rank {r['rank']} {r['coords']}: DeviceParams {r['device_params_s']:.3f} s on the "
+                f"kernels ({r['launches_setup']['comb8_bases']} comb8_bases, "
+                f"{r['launches_setup']['comb8_entries']} comb8_entries launches), prove "
                 f"{r['prove_s']:.3f} s ({N / r['prove_s']:.2f} proofs/s), verify {r['verify_s']:.3f} s "
                 f"({N / r['verify_s']:.2f} proofs/s), tampered batch {r['tampered_s']:.2f} s; launches "
                 f"prove {json.dumps(r['launches_prove'])}, verify {json.dumps(r['launches_verify'])}")
@@ -1388,6 +1608,8 @@ def main() -> int:
         "bucket_fold": ("zkecdsa_tpu_torch/csrc/bucket.cu", "zkecdsa_tpu/ops/msm_bucket.py:123"),
         "msm_ladder": ("zkecdsa_tpu_torch/csrc/ladder.cu", "zkecdsa_tpu/ops/curve_ops.py:373"),
         "field_sum": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/parallel/mesh.py:130"),
+        "comb8_bases": ("zkecdsa_tpu_torch/csrc/comb8.cu", "zkecdsa_tpu/ops/curve_ops.py:307"),
+        "comb8_entries": ("zkecdsa_tpu_torch/csrc/comb8.cu", "zkecdsa_tpu/ops/curve_ops.py:666"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -1395,15 +1617,17 @@ def main() -> int:
         e = recs[0]  # slice 1's kernels: the verifier's shape; else the prover's first
         prove_ms = sum(r["ms"] * r["launches_per_prove"] / r["launches_per_call"] for r in recs)
         mesh_launches = {
-            run: {path: [r[f"launches_{path}"][name] for r in reports] for path in ("prove", "verify")}
+            run: {path: [r[f"launches_{path}"][name] for r in reports] for path in ("setup", "prove", "verify")}
             for run, reports in mesh_runs.items()
         }
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": (launches_prove[name] + launches_verify[name]
-                         + launches_bucket[name] + launches_scalar[name]
+            "launches": (launches_setup[name] + launches_prove[name] + launches_verify[name]
+                         + launches_bucket[name] + launches_scalar[name] + launches_hard[name]
                          + sum(sum(v) for m in mesh_launches.values() for v in m.values())),
+            "launches_setup": launches_setup[name],
             "launches_prove": launches_prove[name], "launches_verify": launches_verify[name],
+            "launches_hardened": launches_hard[name],
             "launches_bucket_verify": launches_bucket[name],
             "launches_scalar_verify": launches_scalar[name],
             "launches_mesh": mesh_launches,
@@ -1418,6 +1642,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({
         "kernels": kernels,
+        "setup_s": setup_s, "host_setup_s": host_setup_s, "hardened_setup_s": setup_h_s,
+        "hardened_prove_s": prove_h_s, "hardened_verify_s": verify_h_s,
         "prove_s": prove_wall, "prove_proofs_per_s": N / prove_wall,
         "verify_s": verify_wall, "verify_proofs_per_s": N / verify_wall,
         "prove_verify_proofs_per_s": N / both,

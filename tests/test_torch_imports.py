@@ -164,6 +164,11 @@ _CALLS = {
     "comb_weier": lambda: tcurve.comb_weier(
         _meta((32, 256, 3, 9)), _meta((2, 32), torch.uint8)
     ),
+    "comb8_bases": lambda: tcurve.comb8_bases(tcurve.tom_ops, _meta((2, 4, 9))),
+    "comb8_entries": lambda: tcurve.comb8_entries(tcurve.p256_ops, _meta((1, 32, 3, 9))),
+    "comb_table": lambda: tcurve.comb_table(_meta((3, 9))),
+    "comb_table_mixed": lambda: tcurve.comb_table_mixed(_meta((2, 4, 9))),
+    "DeviceParams": lambda: tbatch.DeviceParams(generate_params_list(), "meta"),
     "chord": lambda: tf.chord(_meta((4, 15, 9))),
     "bucket_sums": lambda: tmb.bucket_sums(
         tcurve.tom_ops, _meta((2, 8, 4, 9)), _meta((2, 52, 8), torch.uint8), 5

@@ -63,6 +63,10 @@ def _edge_pairs(g, rs, n):
 
 @pytest.fixture(scope="module")
 def tables():
+    """The Tom-256 comb tables of one parameter set (built only where the
+    kernels run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels run only on the card")
     with trng.deterministic(31):
         params = generate_params_list()
     return DeviceParams(params, "cpu").tabs()["gh_t8"]
@@ -438,6 +442,43 @@ def test_comb4_bases_ragged(R, cuda):
     ops, g = tcurve.p256_ops, p256
     P = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(R)], cuda)
     assert torch.equal(tcurve.comb4_bases(P), ops.comb4_bases(P))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 3])
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_comb8_bases_kernel_vs_plain(ops, g, R, cuda):
+    """A team per base, LSB-first windows: one base (P-256 h), two (the
+    Tom-256 g and h), three; bit for bit against the plain version."""
+    rs = np.random.RandomState(110 + R)
+    P = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(R)], cuda)
+    got = tcurve.comb8_bases(ops, P)
+    assert torch.equal(got, ops.comb8_bases(P))
+    assert ops.unpack_points(got[0, 1:2])[0].eq(ops.unpack_points(P[:1])[0].mul(g.new_scalar(256)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_comb8_entries_kernel_vs_plain(ops, g, cuda):
+    """The tables of two bases from their window bases, bit for bit
+    against the plain version (both forms for Tom-256), and the wrapper
+    pair against the Python-integer host oracle."""
+    rs = np.random.RandomState(120)
+    pts = [g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(2)]
+    bases = ops.comb8_bases(ops.pack_points(pts, cuda))
+    got = tcurve.comb8_entries(ops, bases)
+    want = ops.comb8_entries(bases)
+    if ops is tcurve.p256_ops:
+        assert torch.equal(got, want)
+        assert torch.equal(tcurve.comb_table(ops.pack_points(pts[:1], cuda)[0]).cpu(),
+                           DeviceParams._host_comb_weier(pts[0]))
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        host = tcurve.MixedComb.pack(DeviceParams._host_comb_mixed(pts[0]) + DeviceParams._host_comb_mixed(pts[1]))
+        comb = tcurve.comb_table_mixed(ops.pack_points(pts, cuda))
+        assert torch.equal(comb.canon.cpu(), host.canon) and torch.equal(comb.mont.cpu(), host.mont)
     torch.cuda.synchronize()
 
 

@@ -58,6 +58,8 @@ _SIGNATURES = {
     "zk_comb4_bases": [_L, _P, _P, _P],
     "zk_comb4_entries": [_L, _P, _P, _P],
     "zk_mul_comb4": [_L, _L, _P, _P, _P, _P],
+    "zk_comb8_bases": [_I, _L, _P, _P, _P],
+    "zk_comb8_entries": [_I, _L, _P, _P, _P, _P],
     "zk_chord": [_L, _P, _P, _P],
     "zk_bucket_sums": [_I, _L, _L, _I, _I, _P, _P, _P, _P],
     "zk_bucket_fold": [_I, _L, _I, _I, _I, _P, _P, _P],

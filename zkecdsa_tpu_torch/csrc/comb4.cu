@@ -50,16 +50,7 @@ __global__ void __launch_bounds__(BASES * ZK_TEAM) comb4_bases_kernel(
     // a team past R runs base R-1 and stores nothing
     const bool live = r0 < R;
     const long long r = live ? r0 : R - 1;
-    uint32_t* t = bases + r * 64 * PT;
-    Pt<CID> b;
-    team_to_mont<CID>(b, P + r * PT);
-    team_store<CID>(t + 63 * PT, b, live);
-#pragma unroll 1
-    for (int k = 1; k < 64; ++k) {
-#pragma unroll 1
-        for (int s = 0; s < 4; ++s) team_dbl<CID>(b, b);
-        team_store<CID>(t + (63 - k) * PT, b, live);
-    }
+    team_comb_bases<CID, 4, true>(bases + r * 64 * PT, P + r * PT, 64, live);
 }
 
 __global__ void comb4_entries_kernel(long long RJ, const uint32_t* __restrict__ bases,

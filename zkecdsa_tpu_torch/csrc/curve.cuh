@@ -554,6 +554,25 @@ __device__ __forceinline__ void team_store(uint32_t* g, const Pt<CID>& P, bool l
     if (live && q < CurveT<CID>::C) fe_store(g + q * ZK_NL, c);
 }
 
+// The window bases of a comb by a team of four lanes: base k of n is
+// 2^(W k) * P, from n - 1 runs of W doublings on one chain, stored in
+// standard form at t + pos * C * ZK_NL with pos = n - 1 - k when
+// MSB_FIRST (comb4: the position order of nibble digits), else k (comb8:
+// byte-digit windows); stores only if `live`.
+template <int CID, int W, bool MSB_FIRST>
+__device__ __forceinline__ void team_comb_bases(uint32_t* t, const uint32_t* P, int n, bool live) {
+    constexpr int PT = CurveT<CID>::C * ZK_NL;
+    Pt<CID> b;
+    team_to_mont<CID>(b, P);
+    team_store<CID>(t + (MSB_FIRST ? n - 1 : 0) * PT, b, live);
+#pragma unroll 1
+    for (int k = 1; k < n; ++k) {
+#pragma unroll 1
+        for (int s = 0; s < W; ++s) team_dbl<CID>(b, b);
+        team_store<CID>(t + (MSB_FIRST ? n - 1 - k : k) * PT, b, live);
+    }
+}
+
 // r = c ? P : Q, without a branch
 template <int CID>
 __device__ __forceinline__ void pt_select(Pt<CID>& r, bool c, const Pt<CID>& P, const Pt<CID>& Q) {

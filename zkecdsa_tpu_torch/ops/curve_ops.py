@@ -16,8 +16,9 @@ and are canonicalised once at the end.  The kernel wrappers
 (:func:`ec_add`, :func:`to_affine`, :func:`straus_msm`,
 :func:`comb_mixed`, the prover's P-256 kernels :func:`shamir`,
 :func:`comb4_bases`, :func:`comb4_entries`, :func:`mul_comb4`,
-:func:`comb_weier`, and :func:`msm`, :func:`msm_ladder`) take the plain
-version for a CPU tensor and launch their kernel for any other, or raise.
+:func:`comb_weier`, :func:`msm`, :func:`msm_ladder`, and the parameter
+set-up's :func:`comb8_bases`, :func:`comb8_entries`) take the plain version
+for a CPU tensor and launch their kernel for any other, or raise.
 The bucket MSM's kernels are in ``ops/msm_bucket.py``.
 """
 
@@ -61,6 +62,10 @@ __all__ = [
     "comb4_entries",
     "mul_comb4",
     "comb_weier",
+    "comb8_bases",
+    "comb8_entries",
+    "comb_table",
+    "comb_table_mixed",
     "msm",
     "msm_ladder",
 ]
@@ -68,6 +73,8 @@ __all__ = [
 WINDOW = 4
 NDIGITS_256 = 64  # 256-bit scalars, 4-bit windows
 TABLE = 1 << WINDOW
+COMB_WINDOWS = 32  # 8-bit windows of a 256-bit scalar (fixed-base comb)
+COMB_ENTRIES = 256  # multiples 0..255 a window
 
 
 def nibble_digits(scalars, width: int = NDIGITS_256) -> np.ndarray:
@@ -219,28 +226,62 @@ class CurveOps:
         m_k = dbl(entry k/2) to entries 0..k-1."""
         return self.comb4_entries(self.comb4_bases(P))
 
+    def _wbases(self, Pw: torch.Tensor, n: int, wbits: int) -> list[torch.Tensor]:
+        """The n window bases of a comb, LSB-first: entry k = 2^(wbits k)
+        * P, from n - 1 runs of ``wbits`` doublings (working form)."""
+        bases = [Pw]
+        for _ in range(n - 1):
+            b = bases[-1]
+            for _ in range(wbits):
+                b = self._wdbl(b)
+            bases.append(b)
+        return bases
+
+    def _wentries(self, bw: torch.Tensor, n: int) -> torch.Tensor:
+        """The multiples 0..n-1 of each base [..., C, W] -> [..., n, C, W]
+        by index-set doubling, the reference's order: from (identity,
+        base), each round adds m_k = dbl(entry k/2) to entries 0..k-1."""
+        ident = self._work(self.identity(bw.shape[:-2], bw.device))
+        tab = torch.stack([ident, bw], dim=-3)
+        while tab.shape[-3] < n:
+            k = tab.shape[-3]
+            mk = self._wdbl(tab[..., k // 2, :, :])
+            tab = torch.cat([tab, self._wadd(tab, mk[..., None, :, :])], dim=-3)
+        return tab
+
     def comb4_bases(self, P: torch.Tensor) -> torch.Tensor:
         """The position bases of :meth:`comb4_table`, [..., 64, C, 9]:
         entry j = 16^(63-j) * P, from 63 runs of four doublings."""
-        bases = [self._work(P)]
-        for _ in range(NDIGITS_256 - 1):
-            b = bases[-1]
-            for _ in range(4):
-                b = self._wdbl(b)
-            bases.append(b)
+        bases = self._wbases(self._work(P), NDIGITS_256, WINDOW)
         return self._canon(torch.stack(bases[::-1], dim=-3))
 
     def comb4_entries(self, bases: torch.Tensor) -> torch.Tensor:
         """The 16 entries of each position of :meth:`comb4_table` from its
         position bases [..., 64, C, 9] -> [..., 64, 16, C, 9]."""
-        bases = self._work(bases)
-        ident = self._work(self.identity(bases.shape[:-2], bases.device))
-        tab = torch.stack([ident, bases], dim=-3)  # [..., 64, 2, C, W]
-        while tab.shape[-3] < TABLE:
-            k = tab.shape[-3]
-            mk = self._wdbl(tab[..., k // 2, :, :])
-            tab = torch.cat([tab, self._wadd(tab, mk[..., None, :, :])], dim=-3)
-        return self._canon(tab)
+        return self._canon(self._wentries(self._work(bases), TABLE))
+
+    # -- the fixed-base comb tables of the Pedersen bases (reference
+    #    curve_ops.py:307 comb_table, :666 comb_table_mixed): built once
+    #    per parameter set, T[j][d] = d * 2^(8j) * base, then affine ------
+
+    def comb8_bases(self, P: torch.Tensor) -> torch.Tensor:
+        """The window bases of a comb table, [..., C, 9] -> [..., 32, C,
+        9], LSB-first: entry j = 2^(8j) * P, from 31 runs of eight
+        doublings."""
+        return self._canon(torch.stack(self._wbases(self._work(P), COMB_WINDOWS, 8), dim=-3))
+
+    def _comb8_affine(self, bases: torch.Tensor):
+        """The 256 multiples of each window base [..., 32, C, 9] as affine
+        working digits (x, y) [..., 32, 256, W] and the identity mask
+        [..., 32, 256]: the entries by index-set doubling, then one batch
+        inversion of every Z (the reference's ``to_affine``); the
+        identity gives (0, 0)."""
+        f = self.f
+        tab = self._wentries(self._work(bases), COMB_ENTRIES)
+        z = tab[..., -1, :]
+        inf = f.is_zero(f.canon(z))
+        zinv = f.wbatch_inv(z.reshape(-1, z.shape[-1])).reshape(z.shape)
+        return f.wmul(tab[..., 0, :], zinv), f.wmul(tab[..., 1, :], zinv), inf
 
     def mul_comb4(self, tab: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
         """Multiply from a :meth:`comb4_table`: tab [..., 64, 16, C, 9],
@@ -390,6 +431,24 @@ class WeierOps(CurveOps):
         z3 = f.wsmall(f.wmul(yz2, yy), 4)
         return torch.stack([x3, y3, z3], dim=-2)
 
+    def comb8_entries(self, bases: torch.Tensor) -> torch.Tensor:
+        """The comb table from its window bases: [..., 32, 3, 9] ->
+        [..., 32, 256, 3, 9], entry [j][d] the affine point d * 2^(8j) *
+        base as (x, y, 1); d = 0 is the identity (0, 1, 0), the form
+        :func:`comb_weier` reads."""
+        f = self.f
+        x, y, inf = self._comb8_affine(bases)
+        one = f.const(1, bases.device)
+        y = torch.where(inf[..., None], one, f.canon(y))
+        z = torch.where(inf[..., None], torch.zeros_like(one), one)
+        return torch.stack([f.canon(x), y, z.expand_as(y)], dim=-2)
+
+    def comb_table(self, P: torch.Tensor) -> torch.Tensor:
+        """The comb table of a base, [..., 3, 9] -> [..., 32, 256, 3, 9]
+        (reference ``curve_ops.py:307 comb_table``, there projective, here
+        affine): :meth:`comb8_bases`, then :meth:`comb8_entries`."""
+        return self.comb8_entries(self.comb8_bases(P))
+
     def neg(self, P: torch.Tensor) -> torch.Tensor:
         return torch.stack([P[..., 0, :], self.f.neg(P[..., 1, :]), P[..., 2, :]], dim=-2)
 
@@ -481,6 +540,32 @@ class EdwardsOps(CurveOps):
         for j in range(comb.shape[0]):
             acc = self._wadd_mixed(acc, self._work(comb[j][d[..., j]]))
         return self._canon(acc)
+
+    def comb8_entries(self, bases: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The mixed-add comb table from its window bases: [..., 32, 4, 9]
+        -> (canonical, Montgomery) [..., 32, 256, 5, 9], entry [j][d] the
+        rows (x, y, x+y, d*x*y, a*x) of the affine point d * 2^(8j) * base
+        (reference ``curve_ops.py:666 comb_table_mixed``); d = 0 is the
+        affine identity (0, 1).  The Montgomery form (x * 2^288 mod p) is
+        made with Python integers (:meth:`FieldT.pack_mont`)."""
+        f = self.f
+        x, y, _ = self._comb8_affine(bases)
+        dev = bases.device
+        rows = torch.stack([
+            x, y, f.wadd(x, y),
+            f.wmul(self._const(self.d, dev), f.wmul(x, y)),
+            f.wmul(self._const(self.a, dev), x),
+        ], dim=-2)
+        canon = self._canon(rows)
+        return canon, f.pack_mont(f.unpack(canon), dev).reshape(canon.shape)
+
+    def comb_table_mixed(self, P: torch.Tensor) -> "MixedComb":
+        """The mixed-add comb tables of R bases [R, 4, 9] -> a
+        :class:`MixedComb` of [R * 32, 256, 5, 9] (each base's 32 windows
+        in turn): :meth:`comb8_bases`, then :meth:`comb8_entries`."""
+        canon, mont = self.comb8_entries(self.comb8_bases(P))
+        shape = (-1, COMB_ENTRIES, self.MIXED_NC, NLIMBS)
+        return MixedComb(canon.reshape(shape), mont.reshape(shape))
 
     def comb_rows(self, x: int, y: int) -> list[int]:
         """The five mixed-add rows of one affine point (x, y)."""
@@ -754,7 +839,7 @@ class MixedComb:
     values: ``canon``, canonical standard form (the plain version's and
     the reference's, ``carry.py``), and ``mont``, x * 2^288 mod p (the
     kernel's Montgomery form, so it converts no entry).  Built once per
-    parameter set on the host (``protocol.batch.DeviceParams``)."""
+    parameter set (``protocol.batch.DeviceParams``, :func:`comb_table_mixed`)."""
 
     canon: torch.Tensor
     mont: torch.Tensor
@@ -1005,3 +1090,86 @@ def comb_weier(comb: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
 
 
 comb_weier.launches = 0
+
+
+def comb8_bases(ops: CurveOps, P: torch.Tensor) -> torch.Tensor:
+    """The window bases of comb tables: canonical [R, C, 9] -> [R, 32, C,
+    9], entry j = 2^(8j) * P (LSB-first, as byte digits are).  Kernel
+    ``csrc/comb8.cu`` (replaces the window-base scan of
+    ``zkecdsa_tpu/ops/curve_ops.py:307 comb_table``): a team of four lanes
+    per base runs the serial chain of 248 doublings in the plain version's
+    order, so the projective coordinates are the same.  A CPU tensor takes
+    ``ops.comb8_bases``."""
+    if P.device.type == "cpu":
+        return ops.comb8_bases(P)
+    lib = _build.load()
+    _check_points(ops, P)
+    if P.dim() != 3:
+        raise ValueError(f"expected [R, {ops.NCOORD}, 9] bases, got {tuple(P.shape)}")
+    P = P.contiguous()
+    out = torch.empty((P.shape[0], COMB_WINDOWS, ops.NCOORD, NLIMBS), dtype=torch.int32, device=P.device)
+    code = lib.zk_comb8_bases(ops.curve_id, P.shape[0], P.data_ptr(), out.data_ptr(), _stream(P))
+    _build.check(code, "zk_comb8_bases")
+    comb8_bases.launches += 1
+    return out
+
+
+comb8_bases.launches = 0
+
+
+def comb8_entries(ops: CurveOps, bases: torch.Tensor):
+    """The comb tables from their window bases [R, 32, C, 9]: for P-256
+    the affine table [R, 32, 256, 3, 9] (identity (0, 1, 0)); for Tom-256
+    the mixed-add rows [R, 32, 256, 5, 9] as (canonical, Montgomery).
+    Kernel ``csrc/comb8.cu`` (replaces the entries of
+    ``zkecdsa_tpu/ops/curve_ops.py:307 comb_table`` and the affine rows of
+    ``:666 comb_table_mixed``): one block a window builds the 256 entries
+    in shared memory in the plain version's order, then converts each to
+    affine with a Fermat inverse.  A CPU tensor takes
+    ``ops.comb8_entries``."""
+    if bases.device.type == "cpu":
+        return ops.comb8_entries(bases)
+    lib = _build.load()
+    _check_points(ops, bases)
+    if bases.dim() != 4 or bases.shape[1] != COMB_WINDOWS:
+        raise ValueError(f"expected [R, 32, {ops.NCOORD}, 9] window bases, got {tuple(bases.shape)}")
+    bases = bases.contiguous()
+    R = bases.shape[0]
+    mixed = isinstance(ops, EdwardsOps)
+    nc = EdwardsOps.MIXED_NC if mixed else ops.NCOORD
+    canon = torch.empty((R, COMB_WINDOWS, COMB_ENTRIES, nc, NLIMBS), dtype=torch.int32, device=bases.device)
+    mont = torch.empty_like(canon) if mixed else None
+    code = lib.zk_comb8_entries(
+        ops.curve_id, R, bases.data_ptr(), canon.data_ptr(),
+        mont.data_ptr() if mixed else None, _stream(bases),
+    )
+    _build.check(code, "zk_comb8_entries")
+    comb8_entries.launches += 1
+    return (canon, mont) if mixed else canon
+
+
+comb8_entries.launches = 0
+
+
+def comb_table(P: torch.Tensor) -> torch.Tensor:
+    """The P-256 comb table of one base: canonical [3, 9] -> [32, 256, 3,
+    9], entry [j][d] the affine point d * 2^(8j) * P, (0, 1, 0) for d = 0
+    (replaces ``zkecdsa_tpu/ops/curve_ops.py:307 comb_table``, whose table
+    is projective): :func:`comb8_bases`, then :func:`comb8_entries`.  A
+    CPU tensor takes ``p256_ops.comb_table``."""
+    if P.device.type == "cpu":
+        return p256_ops.comb_table(P)
+    return comb8_entries(p256_ops, comb8_bases(p256_ops, P[None]))[0]
+
+
+def comb_table_mixed(P: torch.Tensor) -> MixedComb:
+    """The Tom-256 mixed-add comb tables of R bases: canonical [R, 4, 9] ->
+    a :class:`MixedComb` of [R * 32, 256, 5, 9] (replaces
+    ``zkecdsa_tpu/ops/curve_ops.py:666 comb_table_mixed``, one base a
+    call): :func:`comb8_bases`, then :func:`comb8_entries`, which writes
+    both forms.  A CPU tensor takes ``tom_ops.comb_table_mixed``."""
+    if P.device.type == "cpu":
+        return tom_ops.comb_table_mixed(P)
+    canon, mont = comb8_entries(tom_ops, comb8_bases(tom_ops, P))
+    shape = (-1, COMB_ENTRIES, EdwardsOps.MIXED_NC, NLIMBS)
+    return MixedComb(canon.reshape(shape), mont.reshape(shape))

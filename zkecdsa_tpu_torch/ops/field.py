@@ -276,6 +276,26 @@ class FieldT:
         """Fermat inverse a^(p-2); 0 maps to 0."""
         return self.wpow(a, self.p - 2)
 
+    def wbatch_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Inverses of working digits [n, W] with one Fermat inverse in
+        all (the reference's ``batch_inv``, on a product tree: pairwise
+        products up to the root, its inverse, then inv(left) = inv(parent)
+        * right down again, about 3n products); 0 maps to 0."""
+        zero = self.is_zero(self.canon(a))
+        one = self.to_work(self.const(1, a.device))
+        x = torch.where(zero[:, None], one, a)
+        levels = []  # each level padded to an even length with ones
+        while x.shape[0] > 1:
+            if x.shape[0] % 2:
+                x = torch.cat([x, one[None]])
+            levels.append(x)
+            x = self.wmul(x[0::2], x[1::2])
+        inv = self.winv(x)
+        for x in reversed(levels):
+            inv = inv[: x.shape[0] // 2]  # drop the parent level's padding
+            inv = torch.stack([self.wmul(inv, x[1::2]), self.wmul(inv, x[0::2])], dim=1).flatten(0, 1)
+        return torch.where(zero[:, None], torch.zeros_like(a), inv[: a.shape[0]])
+
     def _ripple(self, r: torch.Tensor) -> torch.Tensor:
         """Exact carry propagation of signed digits (floor semantics)."""
         out = torch.empty_like(r)

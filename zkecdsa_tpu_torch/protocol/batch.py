@@ -27,13 +27,15 @@ the host stages on the whole batch and the device stages on its ``dp``
 slice of the instances; device outputs are gathered over ``dp`` before the
 host reads them, so every rank returns the unsharded prover's proofs.
 
-The reference builds its comb tables on the device; here they are built
-once per parameter set with the host curve arithmetic and uploaded, as the
-window tables already were.  The tables are the same group elements either
-way; the Tom-256 tables are affine in both packages, so their canonical
-coordinates are the same integers, while the reference's P-256 table of h
-is projective and the port's is affine (Z = 1).  The proof wire only
-carries ``to_affine`` outputs, so the proofs are the same bytes.
+The comb tables are built on the device once per parameter set, as the
+reference builds them (``ops.curve_ops.comb_table``, ``comb_table_mixed``:
+the kernels ``comb8_bases`` and ``comb8_entries``); the 16-entry window
+table of G is built with the host curve arithmetic and uploaded, as the
+reference builds it.  The Tom-256 tables are affine in both packages, so
+their canonical coordinates are the same integers, while the reference's
+P-256 table of h is projective and the port's is affine (Z = 1).  The
+proof wire only carries ``to_affine`` outputs, so the proofs are the same
+bytes.
 """
 
 from __future__ import annotations
@@ -54,9 +56,13 @@ from ..curves.weier import WeierstrassPoint
 from ..exp.exp import ExpProof
 from ..exp.pointAdd import PointAddProof
 from ..ops.curve_ops import (
+    COMB_ENTRIES,
+    COMB_WINDOWS,
     MixedComb,
     comb4_table,
     comb_mixed,
+    comb_table,
+    comb_table_mixed,
     comb_weier,
     ec_add,
     mul_comb4,
@@ -85,8 +91,6 @@ __all__ = [
 ]
 
 SECPARAM = 80
-COMB_WINDOWS = 32  # 8-bit windows of a 256-bit scalar
-COMB_ENTRIES = 256
 
 
 def resolve_device(device=None) -> torch.device:
@@ -104,32 +108,33 @@ def resolve_device(device=None) -> torch.device:
 
 class DeviceParams:
     """Device-side precomputation for one SystemParametersList: the window
-    table of the P-256 generator G, the comb table of the P-256 Pedersen
-    base h, and the mixed-add comb tables of the Tom-256 Pedersen bases g
-    and h (one :class:`MixedComb`, canonical and Montgomery form).
-    Construct via :func:`device_params_for` to share one instance per
-    parameter set and device."""
+    table of the P-256 generator G (host arithmetic, uploaded), the comb
+    table of the P-256 Pedersen base h, and the mixed-add comb tables of
+    the Tom-256 Pedersen bases g and h (one :class:`MixedComb`, canonical
+    and Montgomery form), both built on ``device`` by the comb kernels
+    (on the CPU, their plain versions).  Construct via
+    :func:`device_params_for` to share one instance per parameter set and
+    device."""
 
     def __init__(self, params: SystemParametersList, device) -> None:
         self.params = params
         self.device = torch.device(device)
         self.tab_G = self._host_table(p256_ops, p256.generator())
-        self.comb_h_nist = self._host_comb_weier(params.nist_group.h)
-        self.comb_gh_tom = MixedComb.pack(
-            self._host_comb_mixed(params.proof_group.g)
-            + self._host_comb_mixed(params.proof_group.h)
+        self.comb_h_nist = comb_table(p256_ops.pack_points([params.nist_group.h], self.device)[0])
+        self.comb_gh_tom = comb_table_mixed(
+            tom_ops.pack_points([params.proof_group.g, params.proof_group.h], self.device)
         )
         self._tabs: dict[str, torch.Tensor | MixedComb] | None = None
 
     def tabs(self) -> dict[str, torch.Tensor | MixedComb]:
-        """The tables the phases take, on the device (uploaded once):
-        ``gh_t8`` is the :class:`MixedComb` that ``comb_mixed`` takes;
-        ``g_t8`` and ``h_t8`` are views of its canonical halves."""
+        """The tables the phases take, on the device: ``gh_t8`` is the
+        :class:`MixedComb` that ``comb_mixed`` takes; ``g_t8`` and
+        ``h_t8`` are views of its canonical halves."""
         if self._tabs is None:
-            gh = self.comb_gh_tom.to(self.device)
+            gh = self.comb_gh_tom
             self._tabs = {
                 "G": self.tab_G.to(self.device),
-                "h_n8": self.comb_h_nist.to(self.device),
+                "h_n8": self.comb_h_nist,
                 "gh_t8": gh,
                 "g_t8": gh.canon[:COMB_WINDOWS],
                 "h_t8": gh.canon[COMB_WINDOWS:],
@@ -155,7 +160,10 @@ class DeviceParams:
     @staticmethod
     def _host_comb_weier(base) -> torch.Tensor:
         """[32, 256, 3, 9] P-256 comb table: entry [j][d] is the affine
-        point d * 2^(8j) * base with Z = 1; d = 0 is the identity (0:1:0)."""
+        point d * 2^(8j) * base with Z = 1; d = 0 is the identity (0:1:0).
+        Python-integer curve arithmetic, an independent oracle of
+        :func:`comb_table` for the tests and chip_smoke.py; no entry point
+        calls it."""
         p = p256.p
         coords: list[int] = []
         bj = base
@@ -174,7 +182,10 @@ class DeviceParams:
     def _host_comb_mixed(base) -> list[int]:
         """The [32, 256, 5] mixed-add comb table, flat: entry [j][d] holds
         the rows (x, y, x+y, d*x*y, a*x) of the affine point d * 2^(8j) *
-        base; d = 0 is the affine identity (0, 1)."""
+        base; d = 0 is the affine identity (0, 1).  Python-integer curve
+        arithmetic, an independent oracle of :func:`comb_table_mixed` for
+        the tests and chip_smoke.py (with :meth:`MixedComb.pack`); no entry
+        point calls it."""
         p = tomEdwards256.p
         rows: list[list[int]] = []
         bj = base
