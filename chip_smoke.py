@@ -16,9 +16,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``straus_msm`` at every shape of one verify and of path B, each with
    its schedule-independent bound and its launches per path; ``shamir``'s
    two calls apart; ``comb_mixed`` at its four calls under ``comb_plan``'s
-   geometry and under the other one); the launches per prove at the
-   checked shapes must add up to the counts of phase 4a, and
-   ``straus_msm``'s per verify to those of phase 4b; the parameter
+   geometry and under the other one; ``to_affine`` at its seven calls
+   under ``affine_plan``'s group and at group 1; ``ring_fold`` at its two
+   calls, also against Python integers and against the n ``field_mul``
+   launches it replaced, timed too; ``field_mul``, off the main path, at
+   FIELD_B rows a modulus); each bound counts the least work of the
+   function on the call's data (a batch of inversions as one batch
+   inversion), and the script raises if a bound it tightened grew; the
+   launches per prove at the checked shapes must add up to the counts of
+   phase 4a, and those per verify of ``straus_msm``, ``to_affine`` and
+   ``ring_fold`` to phase 4b's (a prove and a verify make one
+   ``ring_fold`` and no ``field_mul`` launch); the parameter
    set-up's kernels (``comb8_bases``, ``comb8_entries``) come first, at
    its shapes (the P-256 h, R = 1; the Tom-256 g and h, R = 2), held
    against their plain versions and against the host oracle (the
@@ -64,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    5a. one rank on NCCL, a 1 x 1 mesh (the dp-sharded layout: the [N, E]
        phase B and the gathers);
    5b. four ranks sharing the one card over gloo, a 2 dp x 2 ring mesh
-       (the ring-sharded GK routines, ``field_sum``);
+       (the ring-sharded GK routines: ``ring_fold`` on the low index bits,
+       ``field_mul`` by the high bits' factors, ``field_sum``);
    5c. in 5b's ranks, ``sharded_gk_total`` (ring 4096, n 12),
        ``sharded_msm`` (8192 Tom-256 terms) and ``sharded_commit`` (N=256)
        against their unsharded counterparts, exactly (points affine);
@@ -149,6 +158,34 @@ def _bound(modmuls: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _fermat_mm(p: int) -> int:
+    """Products of the shortest fixed-window Fermat power a^(p-2), over
+    windows of 1 (the binary ladder) to 6 bits: the table a^2..a^(2^w-1),
+    w squarings a digit below the top one, and a product a nonzero digit
+    (4 bits for each modulus here, csrc/field.cuh fe_inv)."""
+    e = p - 2
+    best = None
+    for w in range(1, 7):
+        digits = [(e >> (w * i)) & ((1 << w) - 1) for i in range(-(-e.bit_length() // w))]
+        cost = (1 << w) - 2 + w * (len(digits) - 1) + sum(1 for d in digits[:-1] if d)
+        best = cost if best is None else min(best, cost)
+    return best
+
+
+def _batch_inv_mm(p: int, B: int) -> int:
+    """The least work of B inversions mod p: Montgomery's trick, 3(B-1)
+    products and one Fermat inverse."""
+    return 3 * max(B - 1, 0) + _fermat_mm(p) if B else 0
+
+
+def _no_looser(what: str, new: tuple[float, str], old: tuple[float, str]) -> tuple[float, str]:
+    """``new``, after checking that the tightened bound is no larger than
+    the one it replaces at the same shape."""
+    if new[0] > old[0]:
+        raise AssertionError(f"{what}: the new bound {new[0]} ms exceeds the old {old[0]} ms")
+    return new
+
+
 def _straus_bound(ops, pts, dig) -> tuple[float, str]:
     """Bound of ``straus_msm`` on points [R, T, C, 9] and digits [R, T, 64],
     whatever its schedule: the least work of the algorithm on these inputs.
@@ -213,11 +250,11 @@ def _kernel_fns() -> dict:
         straus_msm,
         to_affine,
     )
-    from zkecdsa_tpu_torch.ops.field import chord, field_mul, field_sum
+    from zkecdsa_tpu_torch.ops.field import chord, field_mul, field_sum, ring_fold
     from zkecdsa_tpu_torch.ops.msm_bucket import bucket_fold, bucket_sums
 
     return {fn.__name__: fn for fn in (
-        field_mul, ec_add, to_affine, straus_msm, comb_mixed,
+        field_mul, ring_fold, ec_add, to_affine, straus_msm, comb_mixed,
         shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
         bucket_sums, bucket_fold, msm_ladder, field_sum, comb8_bases, comb8_entries,
     )}
@@ -310,8 +347,9 @@ def _rescaled(ops, pts, n: int, rs, device):
 
 
 def check_kernels(dev, dparams, rs, log) -> dict:
-    """Phase 3, every kernel of slice 1 at the verifier's shapes.  Returns
-    {name: shape record} (see :func:`_case`)."""
+    """Phase 3, every kernel of slice 1 at the verifier's shapes, and
+    ``field_mul`` (no longer on the main path) at FIELD_B rows a modulus.
+    Returns {name: shape record or records} (see :func:`_case`)."""
     import numpy as np
     import torch
 
@@ -321,7 +359,6 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         straus_msm,
         straus_plan,
         straus_teams,
-        to_affine,
         tom_ops,
     )
     from zkecdsa_tpu_torch.ops.field import (
@@ -333,10 +370,10 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         WAR_P,
         field_mul,
         field_mul_plain,
-        ring_fold,
+        ring_fold_plain,
     )
 
-    entries = {}
+    entries = {"field_mul": [], "to_affine": []}
     C_P = p256_ops.NCOORD
     pb = NLIMBS * 4  # bytes per field element
 
@@ -352,21 +389,27 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         a, b = f.pack(ai, dev), f.pack(bi, dev)
         got = field_mul(f, a, b)
         plain, plain_ms = _once_ms(lambda: field_mul_plain(f, a, b))
-        _exact(f"field_mul[{f.name}]", [(got, plain)])
+        err = _exact(f"field_mul[{f.name}]", [(got, plain)])
         want = [x * y % p for x, y in zip(ai[:512], bi[:512])]
         if f.unpack(got[:512]) != want:
             raise AssertionError(f"field_mul[{f.name}] disagrees with Python integers")
         ms = _cuda_ms(lambda: field_mul(f, a, b), 10)
+        # the least work: one product a row; a, b read and c written
+        bound, by = _bound(B, 3 * B * pb)
+        entries["field_mul"].append(dict(
+            call=f"{f.name} [{B}] (plain form; the mesh's ring-sharded GK)", launches_per_call=1,
+            launches_per_prove=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        ))
         log(f"field_mul {f.name:7s} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
 
-    # -- field_mul, pair form, through ring_fold at the verifier's shape --
+    # -- ring_fold at the verifier's shape (GK recombination) --------------
     n = RING.bit_length() - 1
     vals = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") for _ in range(RING)], dev)
     fs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") for _ in range(N * n)], dev).reshape(N, n, -1)
     xfs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") for _ in range(N * n)], dev).reshape(N, n, -1)
-    got = ring_fold(vals, fs, xfs)
-    plain, plain_ms = _once_ms(lambda: ring_fold(vals, fs, xfs, mul=field_mul_plain))
-    err = _exact("ring_fold", [(got, plain)])
+    got, rec = _ring_fold_case(vals, fs, xfs, lambda: ring_fold_plain(vals, fs, xfs),
+                               f"[{N}, {RING}] (verifier GK recombination)", 10, log, 0, 1)
+    entries["ring_fold"] = [rec]
     # row 0 against Python integers
     q = TOM_N.p
     v_i, f_i, x_i = TOM_N.unpack(vals), TOM_N.unpack(fs[0]), TOM_N.unpack(xfs[0])
@@ -377,14 +420,6 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         tot = (tot + v) % q
     if TOM_N.unpack(got[0]) != [tot]:
         raise AssertionError("ring_fold disagrees with Python integers")
-    ms = _cuda_ms(lambda: ring_fold(vals, fs, xfs), 10)
-    bound, by = _bound(2 * N * (RING - 1), (RING + 2 * N * n + N) * pb)
-    entries["field_mul"] = dict(
-        call=f"pair form through ring_fold [{N}, {RING}] (verifier GK), {n} launches",
-        launches_per_call=n, launches_per_prove=0,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-    )
-    log(f"field_mul pair form (ring_fold N={N}, ring {RING}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
 
     # -- ec_add: EC_B pairs per curve with identity+P, P+P, P+(-P) rows -----
     from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
@@ -428,24 +463,12 @@ def check_kernels(dev, dparams, rs, log) -> dict:
     log(f"ec_add p256 [{N},{S}]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
 
     # -- to_affine: the verifier's [N, S, 2] batches on both curves -------
-    for ops, name in ((tom_ops, "tomEdwards256"), (p256_ops, "p256")):
+    for ops, name, what in ((p256_ops, "p256", "P-256"), (tom_ops, "tomEdwards256", "Tom-256")):
         pts = samples[name][1][: N * S * 2].reshape(N, S, 2, ops.NCOORD, -1)
-        got = to_affine(ops, pts)
-        plain, plain_ms = _once_ms(lambda: ops.to_affine(pts))
-        err = _exact(f"to_affine[{name}]", [(got[0], plain[0]), (got[1], plain[1]),
-                                            (got[2].to(torch.int32), plain[2].to(torch.int32))])
-        ms = _cuda_ms(lambda: to_affine(ops, pts), 10)
-        log(f"to_affine {name} [{N},{S},2]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
-    if not bool(got[2].reshape(-1)[4]):  # identity + identity row
-        raise AssertionError("to_affine: the identity is not flagged")
-    f = p256_ops.f
-    inv_mm = (f.p - 2).bit_length() - 1 + bin(f.p - 2).count("1") - 1
-    nb = N * S * 2
-    bound, by = _bound((inv_mm + 2) * nb, nb * (C_P * pb + 2 * pb + 1))
-    entries["to_affine"] = dict(
-        call=f"P-256 [{N}, {S}, 2] (vphase)", launches_per_call=1, launches_per_prove=0,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-    )
+        got, rec = _affine_case(ops, pts, f"{what} [{N}, {S}, 2] (vphase)", 10, log, 0, 1)
+        entries["to_affine"].append(rec)
+        if ops is p256_ops and not bool(got[2].reshape(-1)[4]):  # identity + identity row
+            raise AssertionError("to_affine: the identity is not flagged")
 
     # -- straus_msm at the verifier's three shapes: vphase's window muls
     #    [N*(S+1), 1] (Q = z1*G and T = m*R as one-term rows), the per-row
@@ -549,14 +572,71 @@ def _comb_mixed_case(comb, d8, call, reps, log, per_prove):
 
 
 def _affine_bound(ops, B: int):
-    """Bound of ``to_affine`` on B points: a Fermat inverse and two
-    products per point; C coordinates in, x, y and a flag out."""
+    """Bound of ``to_affine`` on B points: one batch inversion of their Z
+    (:func:`_batch_inv_mm`) and two products a point for x and y; C
+    coordinates in, x, y and a flag out.  Checked no larger than the
+    bound it replaced, a binary-ladder inverse a point."""
     from zkecdsa_tpu_torch.ops.field import NLIMBS
 
-    e = ops.f.p - 2
-    inv_mm = e.bit_length() - 1 + bin(e).count("1") - 1
+    p = ops.f.p
     pb = NLIMBS * 4
-    return _bound((inv_mm + 2) * B, B * (ops.NCOORD * pb + 2 * pb + 1))
+    nbytes = B * (ops.NCOORD * pb + 2 * pb + 1)
+    ladder = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
+    return _no_looser(f"to_affine [{B}]", _bound(_batch_inv_mm(p, B) + 2 * B, nbytes),
+                      _bound((ladder + 2) * B, nbytes))
+
+
+def _affine_case(ops, pts, call, reps, log, per_prove, per_verify):
+    """``to_affine`` on one call's points under ``affine_plan``'s group,
+    held exactly against the plain version and timed, and timed again at
+    group 1 (an inverse a point); one ``shapes`` record with the plan and
+    both times."""
+    from zkecdsa_tpu_torch.ops.curve_ops import affine_plan, affine_threads, to_affine
+
+    B = pts.shape[:-2].numel()
+    got, rec = _case("to_affine", call, lambda: to_affine(ops, pts), lambda: ops.to_affine(pts),
+                     _affine_bound(ops, B), reps, log, per_prove)
+    threads = affine_threads(ops, pts.device)
+    plan = affine_plan(B, threads)
+    ms_g1 = _cuda_ms(lambda: to_affine(ops, pts, group=1), reps)
+    rec.update(launches_per_verify=per_verify, ms_group1=ms_g1,
+               plan=dict(dataclasses.asdict(plan), affine_threads=threads))
+    log(f"to_affine {call}: plan {rec['plan']}: {rec['ms']:.4f} ms; group 1: {ms_g1:.4f} ms; "
+        f"bound {rec['bound_ms']:.5f} ms")
+    return got, rec
+
+
+def _ring_fold_levels(vals, f, xf):
+    """The design ``ring_fold`` replaced, timed beside it: one pair-form
+    ``field_mul`` launch a ring-index bit, each level through HBM."""
+    from zkecdsa_tpu_torch.ops.field import NLIMBS, TOM_N, field_mul
+
+    N = f.shape[0]
+    T = vals[None].expand(N, vals.shape[0], NLIMBS)
+    for j in range(f.shape[1]):
+        K = T.shape[1] // 2
+        T = field_mul(TOM_N, xf[:, j : j + 1].expand(N, K, NLIMBS), T[:, 0::2],
+                      f[:, j : j + 1].expand(N, K, NLIMBS), T[:, 1::2])
+    return T[:, 0]
+
+
+def _ring_fold_case(vals, fs, xfs, plain, call, reps, log, per_prove, per_verify):
+    """``ring_fold`` on [N, RING]: exact against ``plain()`` (the plain
+    version) and against the previous design's n ``field_mul`` launches,
+    both timed; one ``shapes`` record.  The bound counts 2 products a pair
+    output, 2^n - 1 of them a row."""
+    from zkecdsa_tpu_torch.ops.field import NLIMBS, ring_fold
+
+    M, n = fs.shape[0], fs.shape[1]
+    pb = NLIMBS * 4
+    bound = _bound(2 * M * (vals.shape[0] - 1), (vals.shape[0] + 2 * M * n + M) * pb)
+    got, rec = _case("ring_fold", call, lambda: ring_fold(vals, fs, xfs), plain, bound, reps, log, per_prove)
+    err = _exact(f"ring_fold {call} vs the field_mul levels", [(_ring_fold_levels(vals, fs, xfs), got)])
+    ms_levels = _cuda_ms(lambda: _ring_fold_levels(vals, fs, xfs), reps)
+    rec.update(launches_per_verify=per_verify, max_abs_err=max(rec["max_abs_err"], err), ms_field_mul_levels=ms_levels)
+    log(f"ring_fold {call}: {rec['ms']:.4f} ms in one launch; the {n} field_mul levels it replaced: "
+        f"{ms_levels:.4f} ms; bound {bound[0]:.4f} ms")
+    return got, rec
 
 
 def _add_bound(ops, B: int):
@@ -585,25 +665,21 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
         mul_comb4,
         p256_ops,
         shamir,
-        to_affine,
         tom_ops,
         window_table,
     )
-    from zkecdsa_tpu_torch.ops.field import (
-        CHORD_IN,
-        NLIMBS,
-        TOM_N,
-        chord,
-        chord_plain,
-        field_mul_plain,
-        ring_fold,
-    )
+    from zkecdsa_tpu_torch.ops.field import CHORD_IN, NLIMBS, TOM_N, chord, chord_plain, ring_fold_plain
 
     shapes: dict[str, list] = {}
 
     def case(name, call, kernel, plain, bound, reps, per_prove, per_call=1):
         got, rec = _case(name, call, kernel, plain, bound, reps, log, per_prove, per_call)
         shapes.setdefault(name, []).append(rec)
+        return got
+
+    def affine(ops, pts, call, reps):
+        got, rec = _affine_case(ops, pts, call, reps, log, 1, 0)
+        shapes.setdefault("to_affine", []).append(rec)
         return got
 
     ops = p256_ops
@@ -697,24 +773,26 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
              lambda: ops.add(T, Hr), _add_bound(ops, N * ROUNDS), 20, 1)
     small = torch.stack([R, cq[:, 1], cq[:, 0]], dim=1)
     aff_in = torch.cat([small, T, A], dim=1)
-    case("to_affine", f"P-256 [{N}, {aff_in.shape[1]}] (phase A)", lambda: to_affine(ops, aff_in),
-         lambda: ops.to_affine(aff_in), _affine_bound(ops, aff_in.shape[:-2].numel()), 10, 1)
+    affine(ops, aff_in, f"P-256 [{N}, {aff_in.shape[1]}] (phase A)", 10)
 
     # -- phase B: T1 = T + D over [K] rows, its affine pass, the chord pass -
     Te, De = T.reshape(-1, 3, NLIMBS)[:K], A.reshape(-1, 3, NLIMBS)[:K]
     T1 = case("ec_add", f"P-256 [{K}] (phase B T1 = T + D)", lambda: ec_add(ops, Te, De),
               lambda: ops.add(Te, De), _add_bound(ops, K), 20, 1)
-    case("to_affine", f"P-256 [{K}] (phase B T1)", lambda: to_affine(ops, T1),
-         lambda: ops.to_affine(T1), _affine_bound(ops, K), 10, 1)
+    affine(ops, T1, f"P-256 [{K}] (phase B T1)", 10)
     q = TOM_N.p
     x = TOM_N.pack(
         [int.from_bytes(rs.bytes(40), "little") % q for _ in range(K * len(CHORD_IN))], dev
     ).reshape(K, len(CHORD_IN), -1)
     x[0, 2] = x[0, 0]
-    e = q - 2
-    inv_mm = e.bit_length() - 1 + bin(e).count("1") - 1
+    # K rows, one inversion each (their least work: one batch inversion),
+    # and the 3 + 16 other products a row
+    ladder = (q - 2).bit_length() - 1 + bin(q - 2).count("1") - 1
+    nbytes = x.numel() * 4 + K * 23 * pb
+    bound = _no_looser(f"chord [{K}]", _bound(_batch_inv_mm(q, K) + K * (3 + 16), nbytes),
+                       _bound(K * (ladder + 3 + 16), nbytes))
     y = case("chord", f"[{K}] phase-B rows mod the Tom-256 order", lambda: chord(x),
-             lambda: chord_plain(x), _bound(K * (inv_mm + 3 + 16), x.numel() * 4 + K * 23 * pb), 10, 1)
+             lambda: chord_plain(x), bound, 10, 1)
     if not bool(TOM_N.is_zero(y[0, 1])):
         raise AssertionError("chord: the inverse of 0 is not 0")
     row = [int(v) for v in TOM_N.unpack(x[1])]
@@ -743,24 +821,21 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     for call, pts in ((f"Tom-256 [{N}, 162] (phase A)", allC),
                       (f"Tom-256 [{K}, 39] (phase B)", torch.cat([cm, s5], dim=1)),
                       (f"Tom-256 [{N * 4 * n}] (GK commits)", gk)):
-        case("to_affine", call, lambda: to_affine(tom_ops, pts), lambda: tom_ops.to_affine(pts),
-             _affine_bound(tom_ops, pts.shape[:-2].numel()), 5, 1)
+        affine(tom_ops, pts, call, 5)
 
-    # -- GK d-values: one ring_fold over N*n rows, 12 pair-form levels;
-    #    the plain version runs over N instances at a time (the same
-    #    function; one call over all rows would hold ~20 GB of products) --
+    # -- GK d-values: one ring_fold over N*n rows; the plain version runs
+    #    over N instances at a time (the same function; one call over all
+    #    rows would hold ~20 GB of products) -------------------------------
     M = N * n
     vals = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(RING)], dev)
     fs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(M * n)], dev).reshape(M, n, -1)
     xfs = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(M * n)], dev).reshape(M, n, -1)
 
     def fold_plain():
-        return torch.cat([ring_fold(vals, fs[i : i + N], xfs[i : i + N], mul=field_mul_plain)
-                          for i in range(0, M, N)])
+        return torch.cat([ring_fold_plain(vals, fs[i : i + N], xfs[i : i + N]) for i in range(0, M, N)])
 
-    case("field_mul", f"pair form through ring_fold [{M}, {RING}] (GK d-values), {n} launches",
-         lambda: ring_fold(vals, fs, xfs), fold_plain,
-         _bound(2 * M * (RING - 1), (RING + 2 * M * n + M) * pb), 3, n, n)
+    _, rec = _ring_fold_case(vals, fs, xfs, fold_plain, f"[{M}, {RING}] (GK d-values)", 3, log, 1, 0)
+    shapes.setdefault("ring_fold", []).append(rec)
     return shapes
 
 
@@ -993,13 +1068,17 @@ def check_setup_kernels(dev, params, log) -> tuple[dict, tuple]:
         rec.update(launches_per_setup=1)
         shapes.setdefault("comb8_bases", []).append(rec)
 
-        e = ops.f.p - 2
-        inv_mm = e.bit_length() - 1 + bin(e).count("1") - 1
+        p = ops.f.p
+        ladder = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
         n_ent = R * COMB_W * COMB_E
         nc = tom_ops.MIXED_NC if ops is tom_ops else C
         forms = 2 if ops is tom_ops else 1
-        bound = _bound(R * COMB_W * (7 * mm_dbl + 254 * mm_add) + n_ent * mm_affine + inv_mm,
-                       R * COMB_W * C * pb + forms * n_ent * nc * pb)
+        chains = R * COMB_W * (7 * mm_dbl + 254 * mm_add)
+        nbytes = R * COMB_W * C * pb + forms * n_ent * nc * pb
+        # mm_affine counts the batch inversion's 3 products an entry
+        bound = _no_looser(f"comb8_entries {what}",
+                           _bound(chains + _batch_inv_mm(p, n_ent) + n_ent * (mm_affine - 3), nbytes),
+                           _bound(chains + n_ent * mm_affine + ladder, nbytes))
         call = f"{what}, [{R}, {COMB_W}] window bases (DeviceParams)"
         got, rec = _case("comb8_entries", call, lambda: comb8_entries(ops, bases),
                          lambda: ops.comb8_entries(bases), bound, 10, log, 0)
@@ -1272,9 +1351,9 @@ def main() -> int:
 
         counters = _kernel_fns()
         setup_path = ("comb8_bases", "comb8_entries")
-        prove_path = ("field_mul", "ec_add", "to_affine", "comb_mixed", "shamir",
+        prove_path = ("ring_fold", "ec_add", "to_affine", "comb_mixed", "shamir",
                       "comb4_bases", "comb4_entries", "mul_comb4", "comb_weier", "chord")
-        verify_path = ("field_mul", "ec_add", "to_affine", "straus_msm", "comb_mixed")
+        verify_path = ("ring_fold", "ec_add", "to_affine", "straus_msm", "comb_mixed")
         bucket_path = verify_path + ("bucket_sums", "bucket_fold")  # path A
         scalar_path = ("straus_msm", "ec_add")  # path B: msm, then its ec_add tree
 
@@ -1383,6 +1462,9 @@ def main() -> int:
                     f"{k}: {launches_prove[k]} launches in one prove, {at_shapes} at the checked shapes"
                 )
 
+        if launches_prove["field_mul"] != 0 or launches_prove["ring_fold"] != 1:
+            raise AssertionError(f"a prove should make 1 ring_fold and 0 field_mul launches: {launches_prove}")
+
         # -- phase 4b: the verifier on the N distinct proofs ------------------
         bv = BatchVerifier(params, dev)
 
@@ -1394,14 +1476,17 @@ def main() -> int:
             "verify", lambda timer: bv.verify(mhs, ring, proofs, timer=timer), verify_path,
             check_verdicts,
         )
-        # phase 3 timed straus_msm at every shape of the verify path: its
-        # launches per verify add up to the count of the run
-        at_shapes = sum(r.get("launches_per_verify", 0) for r in shapes["straus_msm"])
-        if at_shapes != launches_verify["straus_msm"]:
-            raise AssertionError(
-                f"straus_msm: {launches_verify['straus_msm']} launches in one verify, "
-                f"{at_shapes} at the checked shapes"
-            )
+        # phase 3 timed straus_msm, to_affine and ring_fold at every shape
+        # of the verify path: their launches per verify add up to the counts
+        # of the run
+        for k in ("straus_msm", "to_affine", "ring_fold"):
+            at_shapes = sum(r.get("launches_per_verify", 0) for r in shapes[k])
+            if at_shapes != launches_verify[k]:
+                raise AssertionError(
+                    f"{k}: {launches_verify[k]} launches in one verify, {at_shapes} at the checked shapes"
+                )
+        if launches_verify["field_mul"] != 0 or launches_verify["ring_fold"] != 1:
+            raise AssertionError(f"a verify should make 1 ring_fold and 0 field_mul launches: {launches_verify}")
         if vtimer.counts.get("msm.combine_host") != REPS or vtimer.counts.get("msm.pack_host") != REPS:
             raise AssertionError(
                 f"expected the combined Tom-256 MSM and the per-row P-256 MSM once a rep: {vtimer.counts}"
@@ -1565,7 +1650,9 @@ def main() -> int:
     job = dict(params=params_json, mhs=mhs, sigs=sigs, pubs=pubs, ring=ring, sha256=proof_sha)
     mesh_runs = {}
     for name, backend, (dp, rg), checks in MESH_RUNS:
-        ring_path = ("field_sum",) if rg > 1 else ()
+        # the ring-sharded GK routines add field_sum and, for the high index
+        # bits, field_mul
+        ring_path = ("field_sum", "field_mul") if rg > 1 else ()
         t0 = time.perf_counter()
         reports = launch.run(
             _mesh_rank, dp * rg, backend=backend, timeout=MESH_TIMEOUT,
@@ -1594,6 +1681,7 @@ def main() -> int:
     # -- phase 6: the kernels line and the result -----------------------------
     meta = {
         "field_mul": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/ops/pallas_field.py:183"),
+        "ring_fold": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/protocol/batch_gk.py:66"),
         "ec_add": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/pallas_field.py:214"),
         "to_affine": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:459"),
         "straus_msm": ("zkecdsa_tpu_torch/csrc/msm.cu", "zkecdsa_tpu/ops/curve_ops.py:393"),
@@ -1614,7 +1702,7 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in meta.items():
         recs = shapes[name]
-        e = recs[0]  # slice 1's kernels: the verifier's shape; else the prover's first
+        e = recs[0]  # the first shape checked in phase 3
         prove_ms = sum(r["ms"] * r["launches_per_prove"] / r["launches_per_call"] for r in recs)
         mesh_launches = {
             run: {path: [r[f"launches_{path}"][name] for r in reports] for path in ("setup", "prove", "verify")}

@@ -116,6 +116,33 @@ def test_group_law_vs_reference(name):
     assert tcurve.sum_reduce(tops, got[:0]).tolist() == tops.identity().tolist()
 
 
+@pytest.mark.parametrize("where", ["first", "middle", "last", "all"])
+@pytest.mark.parametrize("name", list(CURVES))
+def test_to_affine_vs_reference(name, where):
+    """The plain to_affine (one batch inversion over the batch) against the
+    reference's ``CurveOps.to_affine`` (``batch_inv``) and the host
+    points, with the identity first, in the middle, last, or everywhere:
+    its Z is zero on P-256 (flagged, (0, 0)) and one on Tom-256."""
+    tops, jops, g = CURVES[name]
+    rs = np.random.RandomState(51 + len(name))
+    pts = _points(g, rs, 9)
+    at = {"first": [0], "middle": [4], "last": [8], "all": range(9)}[where]
+    for i in at:
+        pts[i] = g.identity()
+    P = tops.pack_points(pts).reshape(3, 3, tops.NCOORD, -1)
+    x, y, inf = tcurve.to_affine(tops, P)  # CPU tensor: the plain version
+    assert x.shape == y.shape == (3, 3, 9) and inf.shape == (3, 3)
+    jx, jy, jinf = jops.to_affine(jnp.asarray(jops.pack_points(pts)))
+    assert tops.f.unpack(x) == jops.f.unpack(jx)
+    assert tops.f.unpack(y) == jops.f.unpack(jy)
+    assert inf.reshape(-1).tolist() == np.asarray(jinf).tolist()
+    for i, pt in enumerate(pts):
+        aff = pt.to_affine()
+        assert (aff is None) == bool(inf.reshape(-1)[i])
+        want = (0, 0) if aff is None else aff
+        assert (tops.f.unpack(x.reshape(-1, 9)[i : i + 1])[0], tops.f.unpack(y.reshape(-1, 9)[i : i + 1])[0]) == want
+
+
 @pytest.mark.parametrize("name", list(CURVES))
 def test_straus_msm_vs_msm_shared_and_host(name):
     tops, jops, g = CURVES[name]

@@ -115,9 +115,16 @@ def test_field_mul_wrapper_vs_pallas_mul(name):
     assert f.unpack(pair) == [(a * b + d * e) % p for a, b, d, e in zip(a_i, b_i, d_i, e_i)]
 
 
-@pytest.mark.parametrize("ring", [8, 16])
-def test_ring_fold_vs_gk_recombine_device(ring):
-    N, n = 2, ring.bit_length() - 1
+@pytest.mark.parametrize(
+    "ring,N",
+    [pytest.param(8, 2, id="8"), pytest.param(16, 2, id="16")]
+    + [pytest.param(ring, N, id=f"n{ring.bit_length() - 1}-N{N}") for ring in (1, 2, 16) for N in (1, 3)],
+)
+def test_ring_fold_vs_gk_recombine_device(ring, N):
+    """The wrapper (the plain version on CPU tensors) and ``ring_fold_plain``
+    against the JAX ``gk_recombine_device`` (``_fold_ring``) and Python
+    integers, at n = 0 (the values row), 1, 3 and 4 factors."""
+    n = ring.bit_length() - 1
     q = tf.TOM_N.p
     rs = np.random.RandomState(ring)
     vals = [int.from_bytes(rs.bytes(32), "little") % q for _ in range(ring)]
@@ -125,15 +132,18 @@ def test_ring_fold_vs_gk_recombine_device(ring):
     xs = [int.from_bytes(rs.bytes(32), "little") % q for _ in range(N)]
     xf = [[(xs[i] - fs[i][j]) % q for j in range(n)] for i in range(N)]
     flat = lambda rows: [v for r in rows for v in r]  # noqa: E731
-    got = tf.ring_fold(
+    args = (
         tf.TOM_N.pack(vals),
-        tf.TOM_N.pack(flat(fs)).reshape(N, n, -1),
-        tf.TOM_N.pack(flat(xf)).reshape(N, n, -1),
+        tf.TOM_N.pack(flat(fs)).reshape(N, n, tf.NLIMBS),
+        tf.TOM_N.pack(flat(xf)).reshape(N, n, tf.NLIMBS),
     )
+    got = tf.ring_fold(*args)
+    assert torch.equal(got, tf.ring_fold_plain(*args))
     fo = jf.TOM_N
+    L = fo.pack([0]).shape[-1]
     ref = gk_recombine_device(
-        jnp.asarray(fo.pack(flat(fs))).reshape(N, n, -1),
-        jnp.asarray(fo.pack(flat(xf))).reshape(N, n, -1),
+        jnp.asarray(fo.pack(flat(fs))).reshape(N, n, L),
+        jnp.asarray(fo.pack(flat(xf))).reshape(N, n, L),
         jnp.asarray(fo.pack(vals)),
     )
     want = []

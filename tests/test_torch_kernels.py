@@ -30,6 +30,7 @@ from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list
 torch.set_num_threads(1)
 
 FIELDS = [tf.P256_P, tf.P256_N, tf.TOM_P, tf.TOM_N, tf.WAR_P]
+NL = tf.NLIMBS
 CURVES = [(tcurve.p256_ops, p256), (tcurve.tom_ops, tomEdwards256)]
 
 
@@ -169,6 +170,33 @@ def test_comb_plan(B, sms):
         tcurve.comb_plan(B, resident, 2)
 
 
+# to_affine's points at the main path's calls: the verifier's [256, 20, 2],
+# the prover's P-256 [256, 163] and [10240], Tom-256 [256, 162], [10240, 39]
+# and [12288]; then small ones
+AFFINE_POINTS = [10240, 41728, 41472, 399360, 12288, 1, 7, 100000]
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+@pytest.mark.parametrize("B", AFFINE_POINTS)
+def test_affine_plan(B, sms):
+    """Every point in exactly one group, each group at most ``group``
+    points: a point a thread while B fits the threads, else the smallest
+    group that fits; the keyword forces the group size."""
+    threads = sms * 4 * 32  # affine_threads: a warp a scheduler
+    plan = tcurve.affine_plan(B, threads)
+    assert plan.threads <= max(threads, 1)
+    assert plan.group == (1 if B <= threads else -(-B // threads))
+    assert plan.group == 1 or -(-B // (plan.group - 1)) > threads  # the smallest that fits
+    for g in (1, 3, 16, plan.group):
+        forced = tcurve.affine_plan(B, threads, g)
+        assert forced.group == g and forced.threads == -(-B // g)
+        # thread t takes the points t, t + threads, ...: each once, at most g a thread
+        sizes = [len(range(t, B, forced.threads)) for t in range(forced.threads)]
+        assert sum(sizes) == B and max(sizes) <= g
+    with pytest.raises(ValueError):
+        tcurve.affine_plan(B, threads, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
 def test_field_mul_kernel_vs_plain(f, cuda):
@@ -245,15 +273,88 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda):
         launch.run(torch_mesh_ranks.nccl_pair_on_one_card, 2, backend="nccl", timeout=120)
 
 
-@pytest.mark.cuda
-def test_ring_fold_kernel_vs_plain(cuda):
+def _ring_fold_inputs(rs, n, N, cuda):
     f = tf.TOM_N
-    rs = np.random.RandomState(4)
-    vals = f.pack(_values(f.p, rs, 16), cuda)
-    fs = f.pack(_values(f.p, rs, 8), cuda).reshape(2, 4, -1)
-    xf = fs.flip(1).contiguous()
-    got = tf.ring_fold(vals, fs, xf)
-    assert torch.equal(got, tf.ring_fold(vals, fs, xf, mul=tf.field_mul_plain))
+    vals = f.pack(_values(f.p, rs, max(1 << n, 5))[: 1 << n], cuda)
+    fs = f.pack(_values(f.p, rs, max(N * n, 5))[: N * n], cuda).reshape(N, n, tf.NLIMBS)
+    xf = f.pack(_values(f.p, rs, max(N * n, 5))[: N * n][::-1], cuda).reshape(N, n, tf.NLIMBS)
+    return vals, fs, xf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(13))
+def test_ring_fold_kernel_vs_plain(n, cuda):
+    """Every ring size up to 2^12: a block of 2^n threads with one value
+    each up to n = 8, then 256 threads folding 2^(n-8) values each before
+    the block's tree (the geometry depends on n alone; a block a row), on
+    a few rows and on 300 (more blocks than SMs)."""
+    rs = np.random.RandomState(4 + n)
+    for N in (1, 3, 300):
+        vals, fs, xf = _ring_fold_inputs(rs, n, N, cuda)
+        assert torch.equal(tf.ring_fold(vals, fs, xf), tf.ring_fold_plain(vals, fs, xf))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ring_fold_kernel_mesh_slice(cuda):
+    """The ring-sharded GK routines' call: a slice of the ring and the low
+    bits of f, xf only (non-contiguous views), as parallel/mesh.py makes."""
+    rs = np.random.RandomState(5)
+    vals, fs, xf = _ring_fold_inputs(rs, 12, 7, cuda)
+    half, lo = vals[2048:], slice(0, 11)
+    got = tf.ring_fold(half, fs[:, lo], xf[:, lo])
+    assert torch.equal(got, tf.ring_fold_plain(half, fs[:, lo], xf[:, lo]))
+    torch.cuda.synchronize()
+
+
+def _affine_batch(ops, rs, B, cuda):
+    """B points of random canonical coordinates (to_affine is field
+    arithmetic: they need not lie on the curve)."""
+    f = ops.f
+    return f.pack(_values(f.p, rs, max(B * ops.NCOORD, 5))[: B * ops.NCOORD], cuda).reshape(
+        B, ops.NCOORD, NL
+    )
+
+
+def _zero_z(ops, P, idx):
+    """Point(s) idx with Z = 0: the P-256 identity (0:1:0); on Tom-256 a
+    zero Z that no curve point has, which the kernel still flags."""
+    if ops is tcurve.p256_ops:
+        P[idx] = ops.identity((), P.device)
+    else:
+        P[idx, -1] = 0
+
+
+def _affine_equal_plain(ops, P, group):
+    got = tcurve.to_affine(ops, P, group=group)
+    want = ops.to_affine(P)
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("ops,g_", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_to_affine_groups(ops, g_, g, cuda):
+    """Groups of g points forced on 1, g - 1, g, g + 1 and 5g points with
+    zero Z in them; a group of zero Z only; a zero Z at every position of
+    one group; bit for bit against the plain version."""
+    rs = np.random.RandomState(130 + g)
+    for B in sorted({1, max(1, g - 1), g, g + 1, 5 * g}):
+        P = _affine_batch(ops, rs, B, cuda)
+        _zero_z(ops, P, B // 2)
+        assert _affine_equal_plain(ops, P, g)
+    B = 5 * g
+    T = tcurve.affine_plan(B, 1, g).threads
+    P = _affine_batch(ops, rs, B, cuda)
+    _zero_z(ops, P, torch.arange(2, B, T, device=cuda))  # thread 2's whole group
+    x, y, inf = tcurve.to_affine(ops, P, group=g)
+    assert bool(inf[2::T].all()) and not bool(inf[3::T].any())
+    assert _affine_equal_plain(ops, P, g)
+    for k in range(g):  # thread 2 restored; a zero Z at position k of thread 1's group
+        Q = P.clone()
+        Q[2::T] = _affine_batch(ops, rs, len(range(2, B, T)), cuda)
+        _zero_z(ops, Q, 1 + k * T)
+        assert _affine_equal_plain(ops, Q, g)
     torch.cuda.synchronize()
 
 

@@ -17,9 +17,11 @@
 // its own Fermat inverse (the inverse is unique, so the integers are the
 // same, and the rows stay independent).
 //
-// Bound on the H100: 32-bit integer multiply-adds; ~290 squarings and ~130
-// multiplies for the inverse plus 38 products per row, against 60 + 92
-// bytes moved per row.
+// Bound on the H100: 32-bit integer multiply-adds; 298 products for the
+// inverse (field.cuh fe_inv, a 4-bit window) plus 38 products per row,
+// against 60 + 92 bytes moved per row.  The function's least work inverts
+// the K rows as one batch (3 products a row and one inverse); the per-row
+// inverse here is the larger share of the kernel's work.
 
 #include <cuda_runtime.h>
 

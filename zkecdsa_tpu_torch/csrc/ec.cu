@@ -3,19 +3,43 @@
 //
 // ec_add replaces zkecdsa_tpu/ops/pallas_field.py:214 pallas_ec_add and the
 // generic WeierOps.add / EdwardsOps.add (zkecdsa_tpu/ops/curve_ops.py:502,
-// :589).  to_affine replaces CurveOps.to_affine (:459) plus F32Field.canon:
-// an element-wise Fermat inverse (the TPU's batch-inversion tree saved
-// inversions; a GPU thread per point needs none), then canonical x, y and
-// an infinity flag.
-//
-// Bound on the H100: 32-bit integer multiply-adds.  An add is ~14
+// :589).  Bound on the H100: 32-bit integer multiply-adds.  An add is ~14
 // Montgomery products plus C to-Montgomery and C from-Montgomery passes per
-// point against 2*C*36 bytes read and C*36 written; to_affine is ~290
-// squarings per point.  Every intermediate stays in registers.
+// point against 2*C*36 bytes read and C*36 written.  Every intermediate
+// stays in registers.
+//
+// to_affine replaces CurveOps.to_affine (zkecdsa_tpu/ops/curve_ops.py:459)
+// plus F32Field.canon: canonical x, y and an infinity flag.  Like the
+// reference's batch_inv it inverts a batch with one Fermat power: the least
+// work of B inversions is 3(B-1) products and one inverse, then 2 products
+// a point for x and y; an inverse a point would take ~420 products a
+// point, ~80x that work.
+// What bounds it depends on B: the inverse is one chain of ~300 dependent
+// products, and one warp of such a chain keeps a scheduler's INT32 pipe
+// most of the way busy.  So a thread takes a group of g points
+// (Montgomery's trick in its registers: the prefix products of the Z, one
+// inverse, a walk back with 2 products a point, 5 products a point in
+// all), and the host plan (ops/curve_ops.py::affine_plan) picks g from B
+// and the card: one warp a scheduler (132 * 128 threads on the H100), so
+// g = 1 while the points fit that (the chain sets the time; the windowed
+// fe_inv shortens it) and g = B / threads beyond, the inverses' work
+// falling by g; a second warp a scheduler nearly doubles every chain's
+// time (tools/torch_affine_sweep.py times the group sizes; PERF.md).  The
+// group is interleaved (thread t of T takes points t, t + T, ...), so at
+// each step a warp reads and writes neighbouring points; the prefix
+// products are parked in the x output, which the walk back overwrites: no
+// scratch, and a thread holds only a few field elements.  A product tree
+// over a block in shared memory would make the inverses' work negligible,
+// but its one inverse a block is the same chain of ~300 products, run by
+// one thread while the block waits at a barrier, so a call would still
+// take that chain's latency, which the per-thread group reaches with no
+// barrier.
 
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
+
+#define AFFINE_THREADS 128
 
 template <int CID>
 __global__ void ec_add_kernel(long long B, const uint32_t* __restrict__ P,
@@ -30,30 +54,76 @@ __global__ void ec_add_kernel(long long B, const uint32_t* __restrict__ P,
     pt_store<CID>(out + i * C * ZK_NL, r);
 }
 
+// The Z of point i is read raw, as a Montgomery value u_i = Z_i R^-1: no
+// conversion.  The forward pass forms c_k = u_0 ... u_k (one product a
+// point) and parks c_k in x[i_k]; fe_inv of c_last times the standard one
+// gives I = R / c_last, the Montgomery form of 1 / (Z_0 ... Z_last)
+// scaled by R^(k+1) so that the walk back yields, with 2 products a point,
+// I * c_(k-1) = R / Z_k and I <- I * u_k; then x = X * (R / Z_k) R^-1 =
+// X / Z_k in standard form, and y likewise.  A zero Z (the identity) is
+// replaced by one in the chain and flagged; its x, y are written as 0.
 template <int CID>
-__global__ void to_affine_kernel(long long B, const uint32_t* __restrict__ P,
-                                 uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                                 uint8_t* __restrict__ inf) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
+__device__ __forceinline__ bool affine_z(Fe z, const uint32_t* P, long long i) {
+    constexpr int C = CurveT<CID>::C;
+    Fe one;
+    fe_set_zero(one);
+    one[0] = 1u;
+    fe_load(z, P + (i * C + C - 1) * ZK_NL);
+    const bool zero = fe_is_zero(z);
+    fe_select(z, zero, one, z);
+    return zero;
+}
+
+template <int CID>
+__device__ __forceinline__ void affine_out(const uint32_t* P, long long i, const Fe zinv, bool zero,
+                                           uint32_t* x, uint32_t* y) {
     constexpr int C = CurveT<CID>::C;
     const ZkModulus& M = curve_mod<CID>();
-    const uint32_t* p = P + i * C * ZK_NL;
-    Fe t, z, zinv, xm, ym, r;
-    fe_load(t, p + (C - 1) * ZK_NL);
-    inf[i] = fe_is_zero(t) ? 1 : 0;
-    fe_to_mont(z, t, M);
-    fe_inv(zinv, z, M);  // 0 -> 0, so infinity yields (0, 0)
-    fe_load(t, p);
-    fe_to_mont(xm, t, M);
-    fe_load(t, p + ZK_NL);
-    fe_to_mont(ym, t, M);
-    fe_mont_mul(r, xm, zinv, M);
-    fe_from_mont(t, r, M);
-    fe_store(x + i * ZK_NL, t);
-    fe_mont_mul(r, ym, zinv, M);
-    fe_from_mont(t, r, M);
-    fe_store(y + i * ZK_NL, t);
+    Fe t, r, o;
+    fe_set_zero(o);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        fe_load(t, P + (i * C + k) * ZK_NL);
+        fe_mont_mul(r, t, zinv, M);
+        fe_select(r, zero, o, r);
+        fe_store((k ? y : x) + i * ZK_NL, r);
+    }
+}
+
+template <int CID>
+__global__ void __launch_bounds__(AFFINE_THREADS) to_affine_kernel(
+    long long B, long long T, const uint32_t* __restrict__ P, uint32_t* __restrict__ x,
+    uint32_t* __restrict__ y, uint8_t* __restrict__ inf) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= T) return;
+    const ZkModulus& M = curve_mod<CID>();
+    Fe z, c, w, zi;
+    // forward: the prefix products, parked in x
+    bool zero = affine_z<CID>(c, P, t);
+    inf[t] = zero;
+    fe_store(x + t * ZK_NL, c);
+    long long i = t;
+    for (long long j = t + T; j < B; j += T) {
+        i = j;
+        zero = affine_z<CID>(z, P, i);
+        inf[i] = zero;
+        fe_mont_mul(c, c, z, M);
+        fe_store(x + i * ZK_NL, c);
+    }
+    // one inverse for the group: I = R / c_last
+    fe_inv(w, c, M);
+    fe_set_zero(z);
+    z[0] = 1u;
+    fe_mont_mul(c, w, z, M);
+    // backward: R / Z_k from I and c_(k-1), then I <- I * u_k
+    for (; i > t; i -= T) {
+        fe_load(w, x + (i - T) * ZK_NL);
+        fe_mont_mul(zi, c, w, M);
+        zero = affine_z<CID>(z, P, i);
+        fe_mont_mul(c, c, z, M);
+        affine_out<CID>(P, i, zi, zero, x, y);
+    }
+    affine_out<CID>(P, t, c, inf[t] != 0, x, y);
 }
 
 static unsigned grid_for(long long n, int threads) {
@@ -73,15 +143,30 @@ extern "C" int zk_ec_add(int curve, long long B, const void* P, const void* Q, v
     return bad ? bad : (int)cudaGetLastError();
 }
 
-extern "C" int zk_to_affine(int curve, long long B, const void* P, void* x, void* y, void* inf,
-                            void* stream) {
+extern "C" int zk_to_affine(int curve, long long B, long long T, const void* P, void* x, void* y,
+                            void* inf, void* stream) {
     if (B == 0) return 0;
+    if (T < 1 || T > B) return (int)cudaErrorInvalidValue;  // T threads, each 1+ points
     cudaStream_t st = (cudaStream_t)stream;
-    const int threads = 128;
     const int bad = zk_dispatch_curve(curve, [&](auto c) {
         constexpr int CID = decltype(c)::value;
-        to_affine_kernel<CID><<<grid_for(B, threads), threads, 0, st>>>(
-            B, (const uint32_t*)P, (uint32_t*)x, (uint32_t*)y, (uint8_t*)inf);
+        to_affine_kernel<CID><<<grid_for(T, AFFINE_THREADS), AFFINE_THREADS, 0, st>>>(
+            B, T, (const uint32_t*)P, (uint32_t*)x, (uint32_t*)y, (uint8_t*)inf);
     });
     return bad ? bad : (int)cudaGetLastError();
+}
+
+// Warps of to_affine_kernel one SM holds at once (its registers), for the
+// host's group plan (ops/curve_ops.py::affine_threads).
+extern "C" int zk_to_affine_resident_warps(int curve, int* warps) {
+    *warps = 0;
+    int blocks = 0;
+    cudaError_t err = cudaSuccess;
+    const int bad = zk_dispatch_curve(curve, [&](auto c) {
+        constexpr int CID = decltype(c)::value;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, to_affine_kernel<CID>,
+                                                            AFFINE_THREADS, 0);
+    });
+    *warps = blocks * (AFFINE_THREADS / 32);
+    return bad ? bad : (int)err;
 }

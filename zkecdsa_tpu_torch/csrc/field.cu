@@ -1,23 +1,42 @@
 // field_mul: c = a*b mod p, and the pair form c = a*b + d*e mod p, over
-// canonical 9-limb values, one thread per output row.  field_sum: the sum
-// over the leading axis of [D, R] values mod p (at the end of the file).
+// canonical 9-limb values, one thread per output row.  ring_fold: the GK
+// ring contraction in one launch.  field_sum: the sum over the leading
+// axis of [D, R] values mod p (at the end of the file).
 //
-// Replaces zkecdsa_tpu/ops/pallas_field.py:183 pallas_mul (and the generic
-// F32Field.mul, zkecdsa_tpu/ops/f32field.py:354).  The pair form carries
-// the GK ring contraction (zkecdsa_tpu/protocol/batch_gk.py:66 _fold_ring):
-// zkecdsa_tpu_torch/ops/field.py::ring_fold launches it once per ring-index
-// bit.
-//
-// Bound on the H100: 32-bit integer multiply-adds.  A row costs two 9x9-limb
+// field_mul replaces zkecdsa_tpu/ops/pallas_field.py:183 pallas_mul (and
+// the generic F32Field.mul, zkecdsa_tpu/ops/f32field.py:354).  Bound on
+// the H100: 32-bit integer multiply-adds.  A row costs two 9x9-limb
 // Montgomery passes (four for the pair form), each 162 32x32->64-bit
 // products, against 108 bytes moved (180 for the pair form), which puts it
 // on the operations side of the card's IMAD/byte balance.  No tensor-core
 // path exists for 32-bit modular products; the design keeps every
-// intermediate in registers so each operand is read once.
+// intermediate in registers so each operand is read once.  Operands are
+// [N, K, 9] views given by (stride0, stride1) in limbs, with the limb axis
+// contiguous, so broadcast operands (stride 0) cost no copy.  The main
+// path no longer calls it (ring_fold below took its one use there); the
+// mesh's ring-sharded GK routines do.
 //
-// Operands are [N, K, 9] views given by (stride0, stride1) in limbs, with
-// the limb axis contiguous: the ring contraction passes broadcast factors
-// (stride 0) and even/odd ring rows (stride 2*9) without copying them.
+// ring_fold replaces zkecdsa_tpu/protocol/batch_gk.py:66 _fold_ring:
+// out[r] = sum_i v_i * prod_j (f[r, j] if bit_j(i) else xf[r, j]) mod the
+// Tom-256 order, values [2^n, 9], f and xf [N, n, 9].  Its least work is
+// 2^n - 1 pair products a row (2 products and an add each).  As n
+// pair-form field_mul launches a call, each level would go to HBM and
+// back, both factors of a row would be converted to Montgomery form on
+// every row, and at the verifier's [256, 4096] the launch rate would set
+// the time (chip_smoke.py times those launches beside this kernel).
+// Here one block takes one row: its 2n factors go to Montgomery form
+// once, into shared memory, so each output costs exactly 2 products and 1
+// add (the values stay in standard form: Montgomery factor times standard
+// value is standard).  The
+// contraction is a multilinear form, so the bits may be folded in any
+// order: thread t of the block's 2^b (b = min(n, 8)) takes the values
+// t + 2^b m, m < 2^(n-b) (a warp reads neighbouring values at each step,
+// from L2: 147 KB at ring 2^12 for every block), and folds the bits of m
+// (index bits b..n-1) as they stream in, a stack of partial sums a level
+// (local memory, L1-resident); the block then folds the 2^b partials
+// through index bits 0..b-1 in shared memory, a barrier a level.  No level
+// goes to HBM.  One block a row fills the card at the main path's N (256
+// and 3072 rows); a small N runs on a few SMs.
 
 #include <cuda_runtime.h>
 
@@ -82,6 +101,78 @@ extern "C" int zk_field_mul(int mod, long long N, long long K,
         case ZK_WAR_P: launch<ZK_WAR_P>(N, K, A, B, D, E, o, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
+    return (int)cudaGetLastError();
+}
+
+// ring_fold: one block a row (see the note at the top).
+#define RF_MAXN 32
+#define RF_MAXB 8
+
+__device__ __forceinline__ void rf_pair(Fe r, const Fe even, const Fe odd, const uint32_t* fac,
+                                        int j, const ZkModulus& M) {
+    Fe a, b;
+    fe_mont_mul(a, fac + (2 * j) * ZK_NL, even, M);  // xf_j * T[2k]
+    fe_mont_mul(b, fac + (2 * j + 1) * ZK_NL, odd, M);  // f_j * T[2k+1]
+    fe_add(r, a, b, M);
+}
+
+__global__ void __launch_bounds__(1 << RF_MAXB) ring_fold_kernel(
+    int n, int b, const uint32_t* __restrict__ values, const uint32_t* __restrict__ f,
+    const uint32_t* __restrict__ xf, uint32_t* __restrict__ out) {
+    __shared__ uint32_t fac[2 * RF_MAXN * ZK_NL];  // xf_j, f_j in Montgomery form
+    __shared__ uint32_t part[(1 << RF_MAXB) * ZK_NL];
+    const ZkModulus& M = ZK_MODS[ZK_TOM_N];
+    const long long row = blockIdx.x;
+    const int t = threadIdx.x;
+    for (int s = t; s < 2 * n; s += blockDim.x) {
+        Fe v, m;
+        fe_load(v, ((s & 1) ? f : xf) + (row * n + (s >> 1)) * ZK_NL);
+        fe_to_mont(m, v, M);
+        fe_store(fac + s * ZK_NL, m);
+    }
+    __syncthreads();
+    // index bits b..n-1 in the thread: the values t + 2^b m, m streaming
+    const int k = n - b;
+    Fe stack[RF_MAXN], cur;
+#pragma unroll 1
+    for (long long m = 0; m < (1LL << k); ++m) {
+        fe_load(cur, values + (t + (m << b)) * ZK_NL);
+        int l = 0;
+#pragma unroll 1
+        for (; (m >> l) & 1; ++l) rf_pair(cur, stack[l], cur, fac, b + l, M);
+        if (l < k) fe_copy(stack[l], cur);
+    }
+    fe_store(part + t * ZK_NL, cur);
+    __syncthreads();
+    // index bits 0..b-1 across the block: at level l, thread s pairs slot
+    // s 2^(l+1) with its neighbour 2^l on; the active threads are the
+    // first ones, so whole warps idle instead of every warp running with
+    // a few lanes
+    for (int l = 0; l < b; ++l) {
+        if (t < (1 << (b - 1 - l))) {
+            const int s = t << (l + 1);
+            Fe e, o;
+            fe_load(e, part + s * ZK_NL);
+            fe_load(o, part + (s + (1 << l)) * ZK_NL);
+            rf_pair(e, e, o, fac, l, M);
+            fe_store(part + s * ZK_NL, e);
+        }
+        __syncthreads();
+    }
+    if (t == 0) {
+        Fe r;
+        fe_load(r, part);
+        fe_store(out + row * ZK_NL, r);
+    }
+}
+
+extern "C" int zk_ring_fold(int n, long long N, const void* values, const void* f, const void* xf,
+                            void* out, void* stream) {
+    if (n < 0 || n > RF_MAXN) return (int)cudaErrorInvalidValue;
+    if (N == 0) return 0;
+    const int b = n < RF_MAXB ? n : RF_MAXB;
+    ring_fold_kernel<<<(unsigned)N, 1 << b, 0, (cudaStream_t)stream>>>(
+        n, b, (const uint32_t*)values, (const uint32_t*)f, (const uint32_t*)xf, (uint32_t*)out);
     return (int)cudaGetLastError();
 }
 

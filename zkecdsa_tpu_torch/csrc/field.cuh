@@ -221,18 +221,40 @@ __device__ __forceinline__ void fe_mul_small(Fe r, const Fe a, const ZkModulus& 
     fe_copy(r, acc);
 }
 
-// r = a^(p-2) = a^-1 mod p (Montgomery in and out; 0 maps to 0).  The
-// exponent is the same for every thread, so the loop does not diverge.
+// r = a^(p-2) = a^-1 mod p (Montgomery in and out; 0 maps to 0), by a
+// fixed 4-bit window over p-2: a table of a^1..a^15 (14 products), then
+// from the top digit down four squarings and, for a nonzero digit, one
+// product by its table entry.  That is 298 products on the P-256 prime,
+// 312 on Tom-256's, 321 on the P-256 order and 306 on war256's prime (a
+// 3- or 5-bit window takes more on each), where the bit ladder this
+// replaces ran 288 squarings and a product a set bit: 416 and 392.
+// The digits are the modulus's, the same for every thread, so the loop
+// does not diverge; the table is indexed by a digit known only at run
+// time, so it lives in local memory (576 bytes a thread, L1-resident;
+// a table held in registers through a switch on the digit ran slower).
+// Nothing in the chain is unrolled: with the four squarings inlined the
+// loop outgrew the instruction cache, and a chain took 20% longer once
+// most SMs ran it (tools/torch_inv_probe.py; PERF.md).
 __device__ __forceinline__ void fe_inv(Fe r, const Fe a, const ZkModulus& M) {
-    uint32_t e[ZK_NL];
-#pragma unroll
-    for (int i = 0; i < ZK_NL; ++i) e[i] = M.p[i];
-    e[0] -= 2u;  // every modulus here has p[0] >= 2
+    Fe tab[16];
+    fe_copy(tab[1], a);
+#pragma unroll 1
+    for (int k = 2; k < 16; ++k) fe_mont_mul(tab[k], tab[k - 1], a, M);
+    // digit i of p - 2 (every modulus here has p[0] >= 2: no borrow)
+    auto digit = [&](int i) {
+        const uint32_t w = (i >> 3) ? M.p[i >> 3] : M.p[0] - 2u;
+        return (w >> ((i & 7) * 4)) & 15u;
+    };
+    int i = ZK_NL * 8 - 1;
+    while (digit(i) == 0u) --i;  // p - 2 > 0: a nonzero digit exists
     Fe acc;
-    fe_copy(acc, M.one);
-    for (int i = ZK_NL * 32 - 1; i >= 0; --i) {
-        fe_mont_mul(acc, acc, acc, M);
-        if ((e[i >> 5] >> (i & 31)) & 1u) fe_mont_mul(acc, acc, a, M);
+    fe_copy(acc, tab[digit(i)]);
+#pragma unroll 1
+    for (--i; i >= 0; --i) {
+#pragma unroll 1
+        for (int s = 0; s < 4; ++s) fe_mont_mul(acc, acc, acc, M);
+        const uint32_t d = digit(i);
+        if (d != 0u) fe_mont_mul(acc, acc, tab[d], M);
     }
     fe_copy(r, acc);
 }

@@ -46,6 +46,9 @@ __all__ = [
     "scalar_bits",
     "ec_add",
     "to_affine",
+    "affine_plan",
+    "affine_threads",
+    "AffinePlan",
     "straus_msm",
     "straus_plan",
     "straus_teams",
@@ -171,11 +174,12 @@ class CurveOps:
         return torch.where(mask[..., None, None], P, Q)
 
     def to_affine(self, P: torch.Tensor):
-        """(x, y, is_infinity) canonical; infinity yields (0, 0).  An
-        element-wise Fermat inverse (no batch-inversion tree)."""
+        """(x, y, is_infinity) canonical; infinity yields (0, 0).  One
+        batch inversion over all the points (``FieldT.wbatch_inv``, as the
+        reference's ``batch_inv``)."""
         f = self.f
         z = P[..., -1, :]
-        zinv = f.winv(f.to_work(z))
+        zinv = f.wbatch_inv(f.to_work(z).reshape(-1, f.W)).reshape(z.shape[:-1] + (f.W,))
         x = f.canon(f.wmul(f.to_work(P[..., 0, :]), zinv))
         y = f.canon(f.wmul(f.to_work(P[..., 1, :]), zinv))
         return x, y, f.is_zero(z)
@@ -640,11 +644,58 @@ def ec_add(ops: CurveOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
 ec_add.launches = 0
 
 
-def to_affine(ops: CurveOps, P: torch.Tensor):
+# Warps of to_affine chains an SM runs at once under the plan: one a
+# scheduler.  One chain of dependent Montgomery products keeps a
+# scheduler's INT32 pipe most of the way busy, so a second warp there
+# nearly doubles both chains' time: on the H100, Tom-256 [10240, 39] took
+# 0.386 ms at 16,640 threads (g = 24) and 0.483 ms at 33,280 (g = 12),
+# though g = 12 does 15% fewer products a chain
+# (tools/torch_affine_sweep.py; PERF.md).
+_AFFINE_WARPS_PER_SM = 4
+
+
+def affine_threads(ops: CurveOps, device) -> int:
+    """Threads of :func:`to_affine`'s kernel that keep a CUDA device busy
+    without more chains than it needs: its SMs times
+    ``_AFFINE_WARPS_PER_SM`` warps, at most the warps the card holds
+    (C entry ``zk_to_affine_resident_warps``, the kernel's occupancy)."""
+    index = _index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    resident = _resident_warps("zk_to_affine_resident_warps", index, ops.curve_id)
+    return min(resident, sms * _AFFINE_WARPS_PER_SM) * 32
+
+
+@dataclasses.dataclass(frozen=True)
+class AffinePlan:
+    """Launch geometry of :func:`to_affine` for B points: ``threads``
+    threads, thread t inverting the group of points t, t + threads, ...
+    (at most ``group`` of them) with one Fermat inverse."""
+
+    group: int
+    threads: int
+
+
+def affine_plan(B: int, threads: int, group: int | None = None) -> AffinePlan:
+    """The smallest group that lets B points run on at most ``threads``
+    threads (:func:`affine_threads`): while B fits, a point a thread (its
+    inverse chain sets the time, and more work a thread would only
+    lengthen it); beyond, g points a thread, so the inverses' work falls
+    by g while the chains in flight stay enough to fill the card.
+    ``group`` forces the group size (tests and chip_smoke.py)."""
+    if group is None:
+        group = max(1, -(-B // max(1, threads)))
+    if group < 1:
+        raise ValueError(f"to_affine groups hold at least one point, not {group}")
+    return AffinePlan(group, max(1, -(-B // group)))
+
+
+def to_affine(ops: CurveOps, P: torch.Tensor, group: int | None = None):
     """(x, y, is_infinity) of canonical [..., C, 9] points; infinity gives
     (0, 0).  Kernel ``csrc/ec.cu`` (replaces ``curve_ops.py:459
-    to_affine`` + ``canon``): an element-wise Fermat inverse per point.  A
-    CPU tensor takes ``ops.to_affine``."""
+    to_affine`` + ``canon``): Montgomery's trick over groups of points,
+    one Fermat inverse a group, geometry from :func:`affine_plan`
+    (``group`` forces it; tests and chip_smoke.py only).  A CPU tensor
+    takes ``ops.to_affine``."""
     if P.device.type == "cpu":
         return ops.to_affine(P)
     lib = _build.load()
@@ -654,8 +705,10 @@ def to_affine(ops: CurveOps, P: torch.Tensor):
     x = torch.empty(batch + (NLIMBS,), dtype=torch.int32, device=P.device)
     y = torch.empty_like(x)
     inf = torch.empty(batch, dtype=torch.uint8, device=P.device)
+    B = inf.numel()
+    plan = affine_plan(B, affine_threads(ops, P.device), group)
     code = lib.zk_to_affine(
-        ops.curve_id, inf.numel(), P.data_ptr(), x.data_ptr(), y.data_ptr(),
+        ops.curve_id, B, plan.threads, P.data_ptr(), x.data_ptr(), y.data_ptr(),
         inf.data_ptr(), _stream(P),
     )
     _build.check(code, "zk_to_affine")

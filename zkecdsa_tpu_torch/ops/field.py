@@ -29,8 +29,8 @@ canonical values, at the function boundary.
 
 Kernel wrappers
 ---------------
-:func:`field_mul` (``csrc/field.cu``) and :func:`ring_fold`, which runs the
-GK ring contraction on the pair form; :func:`field_sum` (``csrc/field.cu``),
+:func:`field_mul` (``csrc/field.cu``); :func:`ring_fold` (``csrc/field.cu``),
+the GK ring contraction in one launch; :func:`field_sum` (``csrc/field.cu``),
 the sum over a leading axis that folds the sharded GK partials;
 :func:`chord` (``csrc/chord.cu``), the prover's phase-B field pass.  A CPU
 tensor takes the plain version; any other tensor launches the kernel or
@@ -57,6 +57,7 @@ __all__ = [
     "field_sum",
     "field_sum_plain",
     "ring_fold",
+    "ring_fold_plain",
     "bytes_le",
     "chord",
     "chord_plain",
@@ -446,30 +447,63 @@ def field_mul(f: FieldT, a, b, d=None, e=None) -> torch.Tensor:
 field_mul.launches = 0
 
 
-def ring_fold(
-    values: torch.Tensor, f: torch.Tensor, xf: torch.Tensor, mul=field_mul
-) -> torch.Tensor:
-    """sum_i values_i * prod_j (f_j if bit_j(i) else xf_j) mod TOM_N:
-    values [RING, 9], f/xf [N, n, 9] -> [N, 9] canonical.
-
-    The ring axis contracts one index bit at a time, LSB first
-    (``zkecdsa_tpu/protocol/batch_gk.py:66 _fold_ring``): level j is one
-    pair-form ``mul`` over [N, RING/2^(j+1)] rows,
-    T'[k] = xf_j * T[2k] + f_j * T[2k+1].  ``mul`` is the
-    :func:`field_mul` wrapper; :func:`field_mul_plain` gives the plain
-    version on any device."""
+def ring_fold_plain(values: torch.Tensor, f: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`ring_fold`, on any device: the
+    ring axis contracts one index bit at a time, LSB first
+    (``zkecdsa_tpu/protocol/batch_gk.py:66 _fold_ring``), level j one
+    pair-form :func:`field_mul_plain` over [N, RING/2^(j+1)] rows,
+    T'[k] = xf_j * T[2k] + f_j * T[2k+1]."""
     N, n = f.shape[0], f.shape[1]
     if values.shape[0] != 1 << n:
         raise ValueError("ring length must be 2^n for n factors")
     T = values[None].expand(N, values.shape[0], NLIMBS)
     for j in range(n):
         K = T.shape[1] // 2
-        T = mul(
+        T = field_mul_plain(
             TOM_N,
             xf[:, j : j + 1].expand(N, K, NLIMBS), T[:, 0::2],
             f[:, j : j + 1].expand(N, K, NLIMBS), T[:, 1::2],
         )
     return T[:, 0].contiguous() if n else T[:, 0].clone()
+
+
+_RING_FOLD_MAXN = 32  # csrc/field.cu RF_MAXN: factors a row
+
+
+def ring_fold(values: torch.Tensor, f: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
+    """sum_i values_i * prod_j (f_j if bit_j(i) else xf_j) mod TOM_N:
+    values [2^n, 9], f/xf [N, n, 9] -> [N, 9] canonical, for any n >= 0
+    (n = 0 gives the values row on every row).
+
+    Kernel ``csrc/field.cu`` (replaces ``zkecdsa_tpu/protocol/batch_gk.py:66
+    _fold_ring``): one launch, a block a row, the row's factors in
+    Montgomery form in shared memory, so each of the 2^n - 1 outputs a row
+    costs the 2 products and 1 add the bound counts, and no level goes to
+    HBM.  A CPU tensor takes :func:`ring_fold_plain`."""
+    if values.device.type == "cpu":
+        return ring_fold_plain(values, f, xf)
+    lib = _build.load()
+    _check_limbs(values, f, xf)
+    N, n = f.shape[0], f.shape[1]
+    if f.dim() != 3 or tuple(xf.shape) != tuple(f.shape) or tuple(values.shape) != (1 << n, NLIMBS):
+        raise ValueError(
+            f"expected values [2^n, 9] and f, xf [N, n, 9], got {tuple(values.shape)}, "
+            f"{tuple(f.shape)}, {tuple(xf.shape)}"
+        )
+    if n > _RING_FOLD_MAXN:
+        raise ValueError(f"ring_fold takes at most {_RING_FOLD_MAXN} factors a row, got {n}")
+    values, f, xf = values.contiguous(), f.contiguous(), xf.contiguous()
+    out = torch.empty((N, NLIMBS), dtype=torch.int32, device=values.device)
+    code = lib.zk_ring_fold(
+        n, N, values.data_ptr(), f.data_ptr(), xf.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(values.device).cuda_stream,
+    )
+    _build.check(code, "zk_ring_fold")
+    ring_fold.launches += 1
+    return out
+
+
+ring_fold.launches = 0
 
 
 def field_sum_plain(f: FieldT, x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ each of n evaluation points w, d(w) = sum_i (v_index - v_i) * p_i(w) with
 p_i(w) = prod_j f_{bit_j(i),j}(w).  Since sum_i p_i(w) = prod_j (f0_j +
 f1_j), this is v_index * prod_j (f0_j + f1_j) - fold(w), where fold is the
 bitwise ring contraction of :func:`zkecdsa_tpu_torch.ops.field.ring_fold`
-(one pair-form field_mul launch per ring-index bit).  All N*n points go
+(one kernel launch a call).  All N*n points go
 through ONE ring_fold call: the n*n factor values per instance are a few
 host modular operations each, and the products and differences finish on
 the host.  The 4n Pedersen commitments per instance run as one comb-kernel

@@ -10,7 +10,7 @@ Phase structure:
 * device phase V (:func:`vphase`): Q = z1*G and the sampled rounds'
   T = m*R as T = 1 rows of the Straus kernel, T1 = T + Q, one affine pass,
   and the bit-0 T1x/T1y coordinate commitments on the comb kernel;
-* device GK recombination (ring_fold, the pair-form field_mul kernel);
+* device GK recombination (ring_fold, one kernel launch);
 * host: relation assembly (exact reference algebra) into one MultiMult per
   (proof, curve);
 * device MSM: one combined random-linear-combination check per curve on
