@@ -15,8 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    prover gives it and at the verifier's, and time both with CUDA events
    (``straus_msm`` at every shape of one verify and of path B, each with
    its schedule-independent bound and its launches per path; ``shamir``'s
-   two calls apart; ``comb_mixed`` at its four calls under ``comb_plan``'s
-   geometry and under the other one; ``to_affine`` at its seven calls
+   two calls apart; ``comb_mixed`` at its four calls, ``mul_comb4`` at its
+   one and ``comb_weier`` at its one ([N, 81]) and at the two calls it
+   merged, each under ``comb_plan``'s geometry and under the other one;
+   ``comb4_entries`` in Montgomery form (the form ``mul_comb4`` reads)
+   beside its canonical option; ``to_affine`` at its seven calls
    under ``affine_plan``'s group and at group 1; ``ring_fold`` at its two
    calls, also against Python integers and against the n ``field_mul``
    launches it replaced, timed too; ``field_mul``, off the main path, at
@@ -542,32 +545,43 @@ def _case(name, call, kernel, plain, bound, reps, log, per_prove, per_call=1):
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
 
 
+def _geometry_case(name, call, run, plain, B, bound, reps, log, per_prove, device):
+    """A comb kernel (``comb_mixed``, ``comb_weier``, ``mul_comb4``) on
+    one call's B rows: ``run(lanes)`` under ``comb_plan``'s geometry
+    (``lanes=None``, the path's) and under the other one (forced), each
+    held exactly against ``plain()`` and timed; the kernel's result and
+    one ``shapes`` record with the plan and both times."""
+    from zkecdsa_tpu_torch.ops.curve_ops import comb_plan, comb_resident
+
+    got, rec = _case(name, call, lambda: run(None), plain, bound, reps, log, per_prove)
+    resident = comb_resident(device, name)
+    plan = comb_plan(B, resident)
+    other = 1 if plan.lanes == 4 else 4
+    # the other geometry against the plan's result, which equals the plain one
+    err = _exact(f"{name} {call} lanes={other}", [(run(other), got)])
+    ms_other = _cuda_ms(lambda: run(other), reps)
+    rec.update(max_abs_err=max(rec["max_abs_err"], err), other_lanes=other, ms_other=ms_other,
+               plan=dict(dataclasses.asdict(plan), resident_rows=resident))
+    log(f"{name} {call}: plan {rec['plan']}: {rec['ms']:.4f} ms; {other} lanes a row: "
+        f"{ms_other:.4f} ms, exact; bound {bound[0]:.4f} ms")
+    return got, rec
+
+
 def _comb_mixed_case(comb, d8, call, reps, log, per_prove):
-    """``comb_mixed`` on one call's digits d8 [..., 64], row 0 all zero:
-    under ``comb_plan``'s geometry (the path's) and under the other one
-    (forced with ``lanes``), each held exactly against the plain version
-    and timed; the kernel's result and one ``shapes`` record with the plan
-    and both times.  The bound counts 9 products a window (one mixed add),
-    the table read once, the digits and the outputs."""
-    from zkecdsa_tpu_torch.ops.curve_ops import comb_mixed, comb_plan, comb_resident, tom_ops
+    """``comb_mixed`` on one call's digits d8 [..., 64], row 0 all zero,
+    under both geometries (:func:`_geometry_case`).  The bound counts 9
+    products a window (one mixed add), the table read once, the digits
+    and the outputs."""
+    from zkecdsa_tpu_torch.ops.curve_ops import comb_mixed, tom_ops
     from zkecdsa_tpu_torch.ops.field import NLIMBS
 
     B = d8.shape[:-1].numel()
     bound = _bound(MM_EDW_MIXED * 64 * B, comb.mont.numel() * 4 + d8.numel() + B * 4 * NLIMBS * 4)
-    got, rec = _case("comb_mixed", call, lambda: comb_mixed(comb, d8),
-                     lambda: tom_ops.mul_comb_mixed(comb.canon, d8), bound, reps, log, per_prove)
+    got, rec = _geometry_case("comb_mixed", call, lambda lanes: comb_mixed(comb, d8, lanes=lanes),
+                              lambda: tom_ops.mul_comb_mixed(comb.canon, d8), B, bound, reps, log,
+                              per_prove, d8.device)
     if not bool(tom_ops.is_identity(got.view(-1, 4, NLIMBS)[0])):
         raise AssertionError("comb_mixed: zero digits do not give the identity")
-    resident = comb_resident(d8.device)
-    plan = comb_plan(B, resident)
-    other = 1 if plan.lanes == 4 else 4
-    # the other geometry against the plan's result, which equals the plain one
-    err = _exact(f"comb_mixed {call} lanes={other}", [(comb_mixed(comb, d8, lanes=other), got)])
-    ms_other = _cuda_ms(lambda: comb_mixed(comb, d8, lanes=other), reps)
-    rec.update(max_abs_err=max(rec["max_abs_err"], err), other_lanes=other, ms_other=ms_other,
-               plan=dict(dataclasses.asdict(plan), resident_rows=resident))
-    log(f"comb_mixed {call}: plan {rec['plan']}: {rec['ms']:.4f} ms; {other} lanes a row: "
-        f"{ms_other:.4f} ms, exact; bound {bound[0]:.4f} ms")
     return got, rec
 
 
@@ -660,6 +674,7 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     from zkecdsa_tpu_torch.ops.curve_ops import (
         comb4_bases,
         comb4_entries,
+        comb4_table,
         comb_weier,
         ec_add,
         mul_comb4,
@@ -725,7 +740,9 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
                N * 16 * pt_b + 16 * pt_b + 2 * N * 64 + 2 * N * pt_b), 5, 1,
     )
 
-    # -- comb4: position bases, entries, then N x 80 scalars ---------------
+    # -- comb4: position bases, entries in Montgomery form (the form
+    #    mul_comb4 reads; the canonical option checked and timed beside
+    #    them), then N x 80 scalars under both geometries ----------------
     bases = case(
         "comb4_bases", f"P-256 [{N}] bases -> [{N}, 64, 3, 9] (252 doublings each)",
         lambda: comb4_bases(P), lambda: ops.comb4_bases(P),
@@ -734,39 +751,55 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     # its geometry (csrc/comb4.cu): a team of four lanes a base, 8 bases to
     # a one-warp block
     shapes["comb4_bases"][-1]["plan"] = dict(lanes=4, rows_per_block=8, blocks=-(-N // 8))
+    f = ops.f
+    r_mont = f.const((1 << 288) % f.p, dev)  # x -> x * 2^288 mod p, the plain conversion
     tab4 = case(
-        "comb4_entries", f"P-256 [{N}, 64] position bases -> [{N}, 64, 16, 3, 9]",
-        lambda: comb4_entries(bases), lambda: ops.comb4_entries(bases),
+        "comb4_entries", f"P-256 [{N}, 64] position bases -> [{N}, 64, 16, 3, 9] (Montgomery form)",
+        lambda: comb4_entries(bases), lambda: f.mul(ops.comb4_entries(bases), r_mont),
         _bound(N * 64 * (3 * MM_WEIER_DBL + 14 * MM_WEIER_ADD), N * 64 * 17 * pt_b), 10, 1,
     )
-    _exact("comb4_table", [(tab4, ops.comb4_table(P))])
+    tab4c = comb4_entries(bases, canon=True)
+    _exact("comb4_entries (canonical option)", [(tab4c, ops.comb4_entries(bases)), (f.from_mont(tab4), tab4c)])
+    _exact("comb4_table", [(comb4_table(P, canon=True), tab4c), (comb4_table(P), tab4)])
+    _exact("comb4_table vs the plain version", [(tab4c, ops.comb4_table(P))])
+    ms_canon = _cuda_ms(lambda: comb4_entries(bases, canon=True), 10)
+    shapes["comb4_entries"][-1]["ms_canonical_option"] = ms_canon
+    log(f"comb4_entries: the canonical option {ms_canon:.4f} ms, exact")
     dig = u8(N, ROUNDS, 64, hi=16)
     dig[0, 0] = 0
-    T = case(
-        "mul_comb4", f"P-256 [{N}, {ROUNDS}] scalars from per-base tables (phase A T)",
-        lambda: mul_comb4(tab4, dig), lambda: ops.mul_comb4(tab4, dig),
+    T, rec = _geometry_case(
+        "mul_comb4", f"P-256 [{N}, {ROUNDS}] scalars from per-base tables in Montgomery form (phase A T)",
+        lambda lanes: mul_comb4(tab4, dig, lanes=lanes), lambda: ops.mul_comb4(tab4c, dig), N * ROUNDS,
         _bound(N * ROUNDS * 64 * MM_WEIER_ADD, tab4.numel() * 4 + dig.numel() + N * ROUNDS * pt_b),
-        5, 1,
+        5, log, 1, dev,
     )
+    shapes.setdefault("mul_comb4", []).append(rec)
     if not bool(ops.is_identity(T[0, 0])):
         raise AssertionError("mul_comb4: zero digits do not give the identity")
 
-    # -- comb_weier: Hc [N] and Hr [N, 80] on the comb table of h ----------
-    comb = dparams["h_n8"]
-    c1, c2 = u8(N, 32, hi=256), u8(N, ROUNDS, 32, hi=256)
-    c1[0] = 0
+    # -- comb_weier on the Montgomery table of h: phase A's one call, [N,
+    #    81] rows (the rounds' r*h, then com_r*h); then the two calls it
+    #    merged, [N] and [N, 80], timed apart (no launch a prove) ---------
+    comb = dparams["comb_h_n8"]
 
-    def run_comb(fn):
-        return fn(comb, c1), fn(comb, c2)
+    def weier(call, d8, per_prove):
+        rows = d8.shape[:-1].numel()
+        bound = _bound(rows * 32 * MM_WEIER_ADD, comb.mont.numel() * 4 + rows * (32 + pt_b))
+        got, rec = _geometry_case(
+            "comb_weier", call, lambda lanes: comb_weier(comb, d8, lanes=lanes),
+            lambda: ops.mul_comb(comb.canon, d8), rows, bound, 5, log, per_prove, dev,
+        )
+        shapes.setdefault("comb_weier", []).append(rec)
+        return got
 
-    rows = N * (ROUNDS + 1)
-    Hc, Hr = case(
-        "comb_weier", f"P-256 [{N}] + [{N}, {ROUNDS}] rows (phase A Hc, Hr = r*h)",
-        lambda: run_comb(comb_weier), lambda: run_comb(ops.mul_comb),
-        _bound(rows * 32 * MM_WEIER_ADD, comb.numel() * 4 + rows * (32 + pt_b)), 5, 2, 2,
-    )
-    if not bool(ops.is_identity(Hc[0])):
+    c81 = u8(N, ROUNDS + 1, 32, hi=256)
+    c81[0, ROUNDS] = 0  # com_r = 0
+    H = weier(f"P-256 [{N}, {ROUNDS + 1}] rows (phase A: Hr = r*h and Hc = com_r*h in one call)", c81, 1)
+    if not bool(ops.is_identity(H[0, ROUNDS])):
         raise AssertionError("comb_weier: zero digits do not give the identity")
+    Hr = H[:, :ROUNDS]
+    weier(f"P-256 [{N}] rows (Hc alone, as a call of its own)", c81[:, ROUNDS], 0)
+    weier(f"P-256 [{N}, {ROUNDS}] rows (Hr alone, as a call of its own)", c81[:, :ROUNDS], 0)
 
     # -- phase A: A = T + Hr, then one P-256 affine pass [N, 3 + 80 + 80] --
     A = case("ec_add", f"P-256 [{N}, {ROUNDS}] (A = T + Hr)", lambda: ec_add(ops, T, Hr),
@@ -1016,20 +1049,24 @@ def check_mesh_kernels(dev, rs, log) -> dict:
 
 def _host_tables(params):
     """The comb tables of a parameter set from the Python-integer host
-    oracle: (P-256 table of h, Tom-256 MixedComb of g then h)."""
-    from zkecdsa_tpu_torch.ops.curve_ops import MixedComb
+    oracle: (P-256 WeierComb of h, Tom-256 MixedComb of g then h), the
+    Montgomery forms by ``FieldT.pack_mont``."""
+    from zkecdsa_tpu_torch.ops.curve_ops import MixedComb, WeierComb, p256_ops
     from zkecdsa_tpu_torch.protocol.batch import DeviceParams
 
     pg = params.proof_group
-    return (DeviceParams._host_comb_weier(params.nist_group.h),
+    f = p256_ops.f
+    host_n = DeviceParams._host_comb_weier(params.nist_group.h)
+    return (WeierComb(host_n, f.pack_mont(f.unpack(host_n)).reshape(host_n.shape)),
             MixedComb.pack(DeviceParams._host_comb_mixed(pg.g) + DeviceParams._host_comb_mixed(pg.h)))
 
 
 def _tables_exact(name: str, tabs, host) -> None:
-    """A DeviceParams' tables against the host oracle's, exactly."""
+    """A DeviceParams' tables against the host oracle's, exactly, in both
+    forms."""
     host_n, host_t = host
-    _exact(name, [(tabs["h_n8"].cpu(), host_n), (tabs["gh_t8"].canon.cpu(), host_t.canon),
-                  (tabs["gh_t8"].mont.cpu(), host_t.mont)])
+    _exact(name, [(tabs["h_n8"].cpu(), host_n.canon), (tabs["comb_h_n8"].mont.cpu(), host_n.mont),
+                  (tabs["gh_t8"].canon.cpu(), host_t.canon), (tabs["gh_t8"].mont.cpu(), host_t.mont)])
 
 
 def check_setup_kernels(dev, params, log) -> tuple[dict, tuple]:
@@ -1072,9 +1109,8 @@ def check_setup_kernels(dev, params, log) -> tuple[dict, tuple]:
         ladder = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
         n_ent = R * COMB_W * COMB_E
         nc = tom_ops.MIXED_NC if ops is tom_ops else C
-        forms = 2 if ops is tom_ops else 1
         chains = R * COMB_W * (7 * mm_dbl + 254 * mm_add)
-        nbytes = R * COMB_W * C * pb + forms * n_ent * nc * pb
+        nbytes = R * COMB_W * C * pb + 2 * n_ent * nc * pb  # both forms written
         # mm_affine counts the batch inversion's 3 products an entry
         bound = _no_looser(f"comb8_entries {what}",
                            _bound(chains + _batch_inv_mm(p, n_ent) + n_ent * (mm_affine - 3), nbytes),
@@ -1082,12 +1118,10 @@ def check_setup_kernels(dev, params, log) -> tuple[dict, tuple]:
         call = f"{what}, [{R}, {COMB_W}] window bases (DeviceParams)"
         got, rec = _case("comb8_entries", call, lambda: comb8_entries(ops, bases),
                          lambda: ops.comb8_entries(bases), bound, 10, log, 0)
-        if ops is tom_ops:
-            _exact(f"comb8_entries {call} vs the host oracle",
-                   [(got[0].reshape(host_t.canon.shape).cpu(), host_t.canon),
-                    (got[1].reshape(host_t.mont.shape).cpu(), host_t.mont)])
-        else:
-            _exact(f"comb8_entries {call} vs the host oracle", [(got[0].cpu(), host_n)])
+        oracle = host_t if ops is tom_ops else host_n
+        _exact(f"comb8_entries {call} vs the host oracle",
+               [(got[0].reshape(oracle.canon.shape).cpu(), oracle.canon),
+                (got[1].reshape(oracle.mont.shape).cpu(), oracle.mont)])
         rec.update(launches_per_setup=1)
         shapes.setdefault("comb8_entries", []).append(rec)
     log(f"comb8_bases, comb8_entries: exact against their plain versions and the host oracle "

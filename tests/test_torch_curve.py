@@ -195,9 +195,10 @@ def test_tables_carry_across(params):
     it is compared on affine points, its identity entries included."""
     jparams, tparams, jtabs, ttabs = params
     carried = carry.tables_from_jax({k: np.asarray(v) for k, v in jtabs.items()})
-    # every table tensor, and gh_t8, the holder of the Tom-256 tables, whose
-    # canonical halves are g_t8 and h_t8 (test_mixed_comb_forms)
-    tensors = {k: t for k, t in ttabs.items() if k != "gh_t8"}
+    # every table tensor; not the holders of both forms, gh_t8 (its
+    # canonical halves are g_t8 and h_t8, test_mixed_comb_forms) and
+    # comb_h_n8 (its canonical form is h_n8, test_weier_comb_forms)
+    tensors = {k: t for k, t in ttabs.items() if k not in ("gh_t8", "comb_h_n8")}
     assert set(tensors) <= set(carried)
     for key, t in tensors.items():
         assert carried[key].dtype == torch.int32
@@ -235,6 +236,23 @@ def test_mixed_comb_forms(params):
     carried = carry.tables_from_jax({k: np.asarray(jtabs[k]) for k in ("g_t8", "h_t8")})
     assert torch.equal(gh.canon, torch.cat([carried["g_t8"], carried["h_t8"]]))
     assert torch.equal(ttabs["g_t8"], gh.canon[:32]) and torch.equal(ttabs["h_t8"], gh.canon[32:])
+
+
+def test_weier_comb_forms(params):
+    """The P-256 comb table of h the kernel reads is x * 2^288 mod p of the
+    canonical one, entry for entry (FieldT.pack_mont), the identity
+    entries (0, 1, 0) -> (0, 2^288 mod p, 0) included; h_n8 is the
+    canonical form."""
+    _, _, _, ttabs = params
+    comb = ttabs["comb_h_n8"]
+    f = tcurve.p256_ops.f
+    assert isinstance(comb, tcurve.WeierComb)
+    assert comb.canon.shape == comb.mont.shape == (32, 256, 3, 9)
+    assert torch.equal(comb.mont, f.pack_mont(f.unpack(comb.canon)).reshape(comb.mont.shape))
+    R = (1 << 288) % f.p
+    assert f.unpack(comb.mont[:, 0]) == [0, R, 0] * 32
+    assert f.unpack(comb.canon[:, 0]) == [0, 1, 0] * 32
+    assert ttabs["h_n8"] is comb.canon
 
 
 def _nib(scs):
@@ -307,18 +325,30 @@ def test_comb4_vs_reference():
 def test_comb_weier_vs_mul_comb(params):
     """The P-256 comb (CPU: the plain version) on the port's affine table
     against the reference's mul_comb on its projective table: the same
-    points, compared affine."""
+    points, compared affine.  The port's call is phase A's merged one,
+    [N, 81] rows of the rounds' r digits and com_r's as the 81st; the
+    reference's are its two, Hr on [N, 80] and Hc on [N]."""
     _, tparams, jtabs, ttabs = params
     rs = np.random.RandomState(63)
-    v = [int.from_bytes(rs.bytes(32), "little") % p256.order for _ in range(4)]
-    v[0] = 0
-    got = tcurve.comb_weier(
-        ttabs["h_n8"], torch.from_numpy(tcurve.byte_digits(v).astype(np.uint8))
-    )
-    ref = jcurve.p256_ops.mul_comb(jtabs["h_n8"], jnp.asarray(jcurve.byte_digits(v)))
-    _affine(jcurve.p256_ops, tcurve.p256_ops, ref, got)
-    assert bool(tcurve.p256_ops.is_identity(got[0]))
+    N, rounds = 2, 80
+    order = p256.order
+    r = [[int.from_bytes(rs.bytes(32), "little") % order for _ in range(rounds)] for _ in range(N)]
+    com_r = [int.from_bytes(rs.bytes(32), "little") % order for _ in range(N)]
+    r[0][0] = 0
+    com_r[1] = 0
+    rows = [r[i] + [com_r[i]] for i in range(N)]
+    d8 = torch.from_numpy(tcurve.byte_digits([v for row in rows for v in row]).astype(np.uint8))
+    got = tcurve.comb_weier(ttabs["comb_h_n8"], d8.reshape(N, rounds + 1, 32))
+    assert got.shape == (N, rounds + 1, 3, 9)
+    jops = jcurve.p256_ops
+    ref_r = jops.mul_comb(jtabs["h_n8"], jnp.asarray(jcurve.byte_digits([v for row in r for v in row])))
+    ref_c = jops.mul_comb(jtabs["h_n8"], jnp.asarray(jcurve.byte_digits(com_r)))
+    _affine(jops, tcurve.p256_ops, ref_r, got[:, :rounds].reshape(-1, 3, 9))
+    _affine(jops, tcurve.p256_ops, ref_c, got[:, rounds])
+    assert bool(tcurve.p256_ops.is_identity(got[0, 0])) and bool(tcurve.p256_ops.is_identity(got[1, rounds]))
     h = tparams.nist_group.h
-    for r, x in zip(tcurve.p256_ops.unpack_points(got), v):
-        assert r.eq(h.mul(p256.new_scalar(x)))
-
+    for i in range(N):
+        for j in (1, rounds - 1, rounds):
+            assert tcurve.p256_ops.unpack_points(got[i, j : j + 1])[0].eq(h.mul(p256.new_scalar(rows[i][j])))
+    with pytest.raises(TypeError):  # a bare table: only a WeierComb reaches the wrapper
+        tcurve.comb_weier(ttabs["h_n8"], d8[:1])

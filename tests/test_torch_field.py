@@ -81,6 +81,19 @@ def test_plain_field_vs_ints_and_f32field(name):
 
 
 @pytest.mark.parametrize("name", list(FIELDS))
+def test_mont_forms_round_trip(name):
+    """pack_mont writes x * 2^288 mod p and from_mont (plain tensor ops)
+    takes it back, edge values included; the JAX package has no
+    Montgomery form, so Python integers are the reference."""
+    f, _ = FIELDS[name]
+    p = f.p
+    a_i = _values(p, np.random.RandomState(11 + len(name)), 24)
+    m = f.pack_mont(a_i)
+    assert f.unpack(m) == [x * (1 << 288) % p for x in a_i]
+    assert f.unpack(f.from_mont(m.reshape(2, 12, -1))) == a_i
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
 def test_working_form_chains_stay_exact(name):
     """Long chains of lazy sums and products in the plain working form
     (what the curve formulas do) end on the same canonical integers."""

@@ -162,7 +162,7 @@ _CALLS = {
         _meta((2, 64, 16, 3, 9)), _meta((2, 5, 64), torch.uint8)
     ),
     "comb_weier": lambda: tcurve.comb_weier(
-        _meta((32, 256, 3, 9)), _meta((2, 32), torch.uint8)
+        tcurve.WeierComb(_meta((32, 256, 3, 9)), _meta((32, 256, 3, 9))), _meta((2, 32), torch.uint8)
     ),
     "comb8_bases": lambda: tcurve.comb8_bases(tcurve.tom_ops, _meta((2, 4, 9))),
     "comb8_entries": lambda: tcurve.comb8_entries(tcurve.p256_ops, _meta((1, 32, 3, 9))),

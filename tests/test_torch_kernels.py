@@ -170,6 +170,46 @@ def test_comb_plan(B, sms):
         tcurve.comb_plan(B, resident, 2)
 
 
+# comb_weier's and mul_comb4's rows: phase A's one comb_weier call [256,
+# 81], mul_comb4 [256, 80], the [256] call comb_weier made before the two
+# merged; one row; then four times the rows the card holds
+WEIER_ROWS = {"hc": 256, "mul_comb4": 20480, "comb_weier": 20736, "one": 1, "fill": None}
+
+# warps of each one-lane kernel an SM holds (the occupancy of ptxas'
+# sm_90a registers: comb_weier 136, mul_comb4 138, three blocks of four
+# warps)
+WEIER_RESIDENT_WARPS = {"comb_weier": 12, "mul_comb4": 12}
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+@pytest.mark.parametrize("rows", list(WEIER_ROWS))
+@pytest.mark.parametrize("kernel", list(WEIER_RESIDENT_WARPS))
+def test_weier_comb_plan(kernel, rows, sms):
+    """comb_plan for the P-256 comb kernels, with each kernel's resident
+    rows: a team of four a row at every call of the main path and at one
+    row, one lane a row where the rows fill the card several times over;
+    the keyword forces either geometry; every row in exactly one block."""
+    resident = sms * WEIER_RESIDENT_WARPS[kernel] * 32
+    B = WEIER_ROWS[rows] or 4 * resident
+    plan = tcurve.comb_plan(B, resident)
+    assert plan.lanes == (1 if rows == "fill" else 4)
+    assert plan.rows_per_block * plan.lanes == 128
+    for lanes in (1, 4):
+        forced = tcurve.comb_plan(B, resident, lanes)
+        assert forced.lanes == lanes
+        assert (forced.blocks - 1) * forced.rows_per_block < B <= forced.blocks * forced.rows_per_block
+
+
+def test_comb_weier_takes_only_both_forms():
+    """A bare table never reaches comb_weier's kernel, on any device: the
+    wrapper takes a WeierComb or raises."""
+    tab = torch.zeros((32, 256, 3, NL), dtype=torch.int32)
+    d8 = torch.zeros((2, 32), dtype=torch.uint8)
+    for bare in (tab, tab.to("meta"), tcurve.MixedComb(tab, tab)):
+        with pytest.raises(TypeError, match="WeierComb"):
+            tcurve.comb_weier(bare, d8.to(bare.device) if isinstance(bare, torch.Tensor) else d8)
+
+
 # to_affine's points at the main path's calls: the verifier's [256, 20, 2],
 # the prover's P-256 [256, 163] and [10240], Tom-256 [256, 162], [10240, 39]
 # and [12288]; then small ones
@@ -516,21 +556,50 @@ def test_straus_msm_ragged_chunks(ops, g, cuda):
     torch.cuda.synchronize()
 
 
+def _zero_rows(B: int, lanes) -> list[int]:
+    """Rows given all-zero digits: the first, the last of the first block
+    (a team's last row there) and the last (the row an idle team past B
+    runs)."""
+    blk = 128 // (lanes or 4)
+    return sorted({0, min(blk, B) - 1, B - 1})
+
+
+# (lanes, rows) of the P-256 comb kernels' cases: the plan's geometry,
+# then each forced one at one row, a block minus one, a block, a block
+# plus one and five blocks (a block: 32 rows of a team, 128 of a lane)
+WEIER_CASES = [(None, 54)] + [
+    (lanes, b) for lanes in (1, 4) for blk in (128 // lanes,) for b in (1, blk - 1, blk, blk + 1, 5 * blk)
+]
+
+
 @pytest.mark.cuda
-def test_comb4_kernels_vs_plain(cuda):
-    rs = np.random.RandomState(92)
+@pytest.mark.parametrize("lanes,B", WEIER_CASES)
+def test_comb4_kernels_vs_plain(lanes, B, cuda):
+    """The bases and both forms of the entries against the plain versions
+    (the Montgomery form converted back, and the canonical option), then
+    mul_comb4 on the Montgomery tables under the geometry, bit for bit
+    against the plain version on the canonical ones: B scalars over R
+    bases (R = 6 for the plan's case, else 5 for five blocks, 1 or 2)."""
+    rs = np.random.RandomState(92 + B)
     ops, g = tcurve.p256_ops, p256
-    R = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(6)], cuda)
-    bases = tcurve.comb4_bases(R)
-    assert torch.equal(bases, ops.comb4_bases(R))
-    assert torch.equal(tcurve.comb4_entries(bases), ops.comb4_entries(bases))
-    tab = tcurve.comb4_table(R)
-    assert torch.equal(tab, ops.comb4_table(R))
-    dig = torch.from_numpy(rs.randint(0, 16, size=(6, 9, 64)).astype(np.uint8)).to(cuda)
-    dig[0, 0] = 0
-    got = tcurve.mul_comb4(tab, dig)
-    assert torch.equal(got, ops.mul_comb4(tab, dig))
-    assert bool(ops.is_identity(got[0, 0]))
+    R = 6 if lanes is None else 5 if B % 5 == 0 else 2 if B % 2 == 0 else 1
+    S = B // R
+    P = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(R)], cuda)
+    bases = tcurve.comb4_bases(P)
+    assert torch.equal(bases, ops.comb4_bases(P))
+    plain = ops.comb4_entries(bases)
+    tab = tcurve.comb4_entries(bases)
+    assert torch.equal(ops.f.from_mont(tab), plain)
+    assert torch.equal(tcurve.comb4_entries(bases, canon=True), plain)
+    assert torch.equal(tcurve.comb4_table(P), tab)
+    assert torch.equal(tcurve.comb4_table(P, canon=True), ops.comb4_table(P))
+    dig = torch.from_numpy(rs.randint(0, 16, size=(R * S, 64)).astype(np.uint8))
+    zero = _zero_rows(R * S, lanes)
+    dig[zero] = 0
+    dig = dig.reshape(R, S, 64).to(cuda)
+    got = tcurve.mul_comb4(tab, dig, lanes=lanes)
+    assert torch.equal(got, ops.mul_comb4(plain, dig))
+    assert ops.is_identity(got.reshape(-1, 3, NL)[zero]).all()
     torch.cuda.synchronize()
 
 
@@ -572,9 +641,11 @@ def test_comb8_entries_kernel_vs_plain(ops, g, cuda):
     got = tcurve.comb8_entries(ops, bases)
     want = ops.comb8_entries(bases)
     if ops is tcurve.p256_ops:
-        assert torch.equal(got, want)
-        assert torch.equal(tcurve.comb_table(ops.pack_points(pts[:1], cuda)[0]).cpu(),
-                           DeviceParams._host_comb_weier(pts[0]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        host = DeviceParams._host_comb_weier(pts[0])
+        comb = tcurve.comb_table(ops.pack_points(pts[:1], cuda)[0])
+        assert torch.equal(comb.canon.cpu(), host)
+        assert torch.equal(comb.mont.cpu(), ops.f.pack_mont(ops.f.unpack(host)).reshape(host.shape))
     else:
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         host = tcurve.MixedComb.pack(DeviceParams._host_comb_mixed(pts[0]) + DeviceParams._host_comb_mixed(pts[1]))
@@ -584,15 +655,23 @@ def test_comb8_entries_kernel_vs_plain(ops, g, cuda):
 
 
 @pytest.mark.cuda
-def test_comb_weier_kernel_vs_plain(prover_tables, cuda):
-    tabs = prover_tables
-    comb = tabs["h_n8"].to(cuda)
-    d8 = torch.from_numpy(np.random.RandomState(93).randint(0, 256, size=(96, 32)).astype(np.uint8))
-    d8[0] = 0
+@pytest.mark.parametrize("lanes,B", WEIER_CASES)
+def test_comb_weier_kernel_vs_plain(prover_tables, lanes, B, cuda):
+    """comb_weier on the Montgomery table under the geometry, bit for bit
+    against the plain version on the canonical one; the plan's case as
+    phase A shapes it, [N, 81] rows; the bare table raises."""
+    comb = prover_tables["comb_h_n8"].to(cuda)
+    d8 = torch.from_numpy(np.random.RandomState(93 + B).randint(0, 256, size=(B, 32)).astype(np.uint8))
+    zero = _zero_rows(B, lanes)
+    d8[zero] = 0
     d8 = d8.to(cuda)
-    got = tcurve.comb_weier(comb, d8)
-    assert torch.equal(got, tcurve.p256_ops.mul_comb(comb, d8))
-    assert bool(tcurve.p256_ops.is_identity(got[0]))
+    if lanes is None:
+        d8 = d8.reshape(-1, 27, 32)  # [2, 27] rows, as phase A's [N, 81]
+    got = tcurve.comb_weier(comb, d8, lanes=lanes)
+    assert torch.equal(got, tcurve.p256_ops.mul_comb(comb.canon, d8))
+    assert tcurve.p256_ops.is_identity(got.reshape(-1, 3, NL)[zero]).all()
+    with pytest.raises(TypeError):
+        tcurve.comb_weier(comb.mont, d8)
     torch.cuda.synchronize()
 
 

@@ -62,7 +62,7 @@ def _bases(params, case):
 
 @pytest.fixture(scope="module")
 def tables(params):
-    """Per case: the bases, the port's plain tables (P-256 comb table of
+    """Per case: the bases, the port's plain tables (P-256 WeierComb of
     h; Tom-256 MixedComb of g then h) and the reference's, carried to
     canonical limbs."""
     out = {}
@@ -108,7 +108,7 @@ def test_comb_table_vs_jax(tables, case):
     port's affine one are the same points, the 32 identity entries
     included; the port's identity is (0, 1, 0) as comb_weier reads it."""
     t = tables[case]
-    port, ref = t["port_n"], t["ref"]["h_n8"]
+    port, ref = t["port_n"].canon, t["ref"]["h_n8"]
     assert port.shape == (32, 256, 3, 9) and port.dtype == torch.int32
     got = _affine_ints(port)
     assert got == _affine_ints(ref)
@@ -133,10 +133,14 @@ def test_comb_table_mixed_vs_jax(tables, case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_comb_tables_vs_host_oracle(tables, case):
-    """The plain tables equal the Python-integer host oracle's."""
+    """The plain tables equal the Python-integer host oracle's, in both
+    forms (the Montgomery form of the P-256 table: the oracle's through
+    FieldT.pack_mont)."""
     t = tables[case]
     h_n, g_t, h_t = t["bases"]
-    assert torch.equal(t["port_n"], DeviceParams._host_comb_weier(h_n))
+    host_n = DeviceParams._host_comb_weier(h_n)
+    assert torch.equal(t["port_n"].canon, host_n)
+    assert torch.equal(t["port_n"].mont, P256_P.pack_mont(P256_P.unpack(host_n)).reshape(host_n.shape))
     host = tcurve.MixedComb.pack(DeviceParams._host_comb_mixed(g_t) + DeviceParams._host_comb_mixed(h_t))
     assert torch.equal(t["port_t"].canon, host.canon)
     assert torch.equal(t["port_t"].mont, host.mont)
@@ -161,10 +165,13 @@ def test_comb8_bases_lsb_first(params, ops, g):
 
 def test_comb8_entries_wrapper_is_plain_on_cpu(tables):
     """comb8_entries on CPU window bases is the plain version, in both
-    curves' forms: P-256 a tensor, Tom-256 (canonical, Montgomery)."""
+    curves' forms: (canonical, Montgomery), the P-256 pair the
+    WeierComb's, the Tom-256 pair the MixedComb's."""
     h_n, g_t, _ = tables["default"]["bases"]
     bn = tcurve.comb8_bases(tcurve.p256_ops, tcurve.p256_ops.pack_points([h_n]))
-    assert torch.equal(tcurve.comb8_entries(tcurve.p256_ops, bn)[0], tables["default"]["port_n"])
+    canon, mont = tcurve.comb8_entries(tcurve.p256_ops, bn)
+    assert torch.equal(canon[0], tables["default"]["port_n"].canon)
+    assert torch.equal(mont[0], tables["default"]["port_n"].mont)
     bt = tcurve.comb8_bases(tcurve.tom_ops, tcurve.tom_ops.pack_points([g_t]))
     canon, mont = tcurve.comb8_entries(tcurve.tom_ops, bt)
     assert torch.equal(canon[0], tables["default"]["port_t"].canon[:32])

@@ -55,11 +55,13 @@ _SIGNATURES = {
     "zk_straus_resident_warps": [_I, _P],
     "zk_comb_mixed": [_L, _I, _P, _P, _P, _P],
     "zk_comb_mixed_resident_warps": [_P],
-    "zk_comb_weier": [_L, _P, _P, _P, _P],
+    "zk_comb_weier": [_L, _I, _P, _P, _P, _P],
+    "zk_comb_weier_resident_warps": [_P],
     "zk_shamir": [_L, _P, _L, _P, _P, _L, _P, _P, _P],
     "zk_comb4_bases": [_L, _P, _P, _P],
-    "zk_comb4_entries": [_L, _P, _P, _P],
-    "zk_mul_comb4": [_L, _L, _P, _P, _P, _P],
+    "zk_comb4_entries": [_L, _I, _P, _P, _P],
+    "zk_mul_comb4": [_L, _L, _I, _P, _P, _P, _P],
+    "zk_mul_comb4_resident_warps": [_P],
     "zk_comb8_bases": [_I, _L, _P, _P, _P],
     "zk_comb8_entries": [_I, _L, _P, _P, _P, _P],
     "zk_chord": [_L, _P, _P, _P],

@@ -1,8 +1,8 @@
 // comb_mixed: g*v + h*r on Tom-256 from the concatenated mixed-add comb
 // tables [64, 256, 5, 9] (windows 0..31 of g, then 0..31 of h; entry
 // [j][d] = d * 2^(8j) * base as affine rows X, Y, X+Y, d*T, a*X), held in
-// Montgomery form (x * 2^288 mod p, built once per parameter set on the
-// host), and [B, 64] LSB-first byte digits -> [B, 4, 9] canonical extended
+// Montgomery form (x * 2^288 mod p, built once per parameter set by
+// comb8_entries), and [B, 64] LSB-first byte digits -> [B, 4, 9] canonical extended
 // coordinates.  64 table lookups and mixed adds, no doublings, in the
 // window order of the reference, so the projective result is the same.
 //
@@ -25,45 +25,32 @@
 //
 // comb_weier: the P-256 fixed-base multiply of the prover's Pedersen base h
 // from its comb table [32, 256, 3, 9] (entry [j][d] = d * 2^(8j) * h,
-// affine with Z = 1, entry d = 0 the identity (0:1:0)) and [B, 32]
-// LSB-first byte digits -> [B, 3, 9]: acc = acc + T[j][d_j] for j = 0..31,
-// complete RCB15 adds, one thread per row.  Replaces
-// zkecdsa_tpu/ops/curve_ops.py:330 mul_comb (and :358 double_mul_comb).
-// Bound: 32 adds of 14 products plus 3 to-Montgomery passes per window; the
-// table (0.9 MB) stays in L2.
+// affine with Z = 1, entry d = 0 the identity (0:1:0)), held in Montgomery
+// form (built once per parameter set by comb8_entries, which writes both
+// forms), and [B, 32] LSB-first byte digits -> [B, 3, 9] canonical:
+// acc = acc + T[j][d_j] for j = 0..31, complete RCB15 adds in window order.
+// Replaces zkecdsa_tpu/ops/curve_ops.py:330 mul_comb (and :358
+// double_mul_comb).  The prover makes one call a prove, [N, 81] rows (the
+// 80 rounds' r*h and com_r*h).
+//
+// Bound on the H100: 32-bit integer multiply-adds, 14 products a window
+// (the table needs no conversion); the table (0.9 MB) stays in L2.  At
+// N = 256 the 20,736 rows leave the card under-filled, so a row's chain of
+// 32 adds sets the time: the geometry comes from comb_plan as for
+// comb_mixed (comb.cuh comb_weier_row):
+//   * LANES = 4, a team a row: an add is 5 rounds on the chain instead of
+//     14 products, the next window's entry loaded ahead;
+//   * LANES = 1, a lane a row, for calls that fill the card several times
+//     over.
+// A row's 32 digit bytes arrive as two 16-byte loads.
 
 #include <cuda_runtime.h>
 
-#include "curve.cuh"
+#include "comb.cuh"
 
 namespace {
 
-constexpr int COMB_THREADS = 128;
 constexpr int ROW = 5 * ZK_NL;  // limbs per mixed-table entry
-
-// The row's 64 digit bytes, 16 at a time: one 16-byte load every 16
-// windows; each window takes the low byte and shifts the 128-bit queue
-// down by 8 (no indexing into registers, no unrolled windows).
-struct Digits {
-    const uint4* src;
-    uint32_t w0, w1, w2, w3;
-
-    __device__ __forceinline__ int next(int j) {
-        if ((j & 15) == 0) {
-            const uint4 v = __ldg(src + (j >> 4));
-            w0 = v.x;
-            w1 = v.y;
-            w2 = v.z;
-            w3 = v.w;
-        }
-        const int d = (int)(w0 & 0xffu);
-        w0 = __funnelshift_r(w0, w1, 8);
-        w1 = __funnelshift_r(w1, w2, 8);
-        w2 = __funnelshift_r(w2, w3, 8);
-        w3 >>= 8;
-        return d;
-    }
-};
 
 template <int LANES>
 __global__ void __launch_bounds__(COMB_THREADS) comb_mixed_kernel(
@@ -149,29 +136,47 @@ extern "C" int zk_comb_mixed_resident_warps(int* warps) {
     return (int)err;
 }
 
-__global__ void comb_weier_kernel(long long B, const uint32_t* __restrict__ tab,
-                                  const uint8_t* __restrict__ digits,
-                                  uint32_t* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    constexpr int CID = ZK_CURVE_P256;
+// n = 32 windows, passed at run time (comb.cuh comb_weier_row)
+template <int LANES>
+__global__ void __launch_bounds__(COMB_THREADS) comb_weier_kernel(
+    long long B, const uint32_t* __restrict__ tab, const uint8_t* __restrict__ digits, int n,
+    uint32_t* __restrict__ out) {
     constexpr int PT = 3 * ZK_NL;
-    Pt<CID> acc, tmp, e;
-    pt_identity<CID>(acc);
-    for (int j = 0; j < 32; ++j) {
-        pt_load<CID>(e, tab + ((long long)j * 256 + digits[i * 32 + j]) * PT);
-        pt_add<CID>(tmp, acc, e);
-        acc = tmp;
+    const long long row = ((long long)blockIdx.x * COMB_THREADS + threadIdx.x) / LANES;
+    if constexpr (LANES == 1) {
+        if (row >= B) return;
     }
-    pt_store<CID>(out + i * PT, acc);
+    // a team past B runs row B-1 and stores nothing (every lane of the
+    // warp takes part in the exchanges)
+    const bool live = row < B;
+    const long long i = live ? row : B - 1;
+    comb_weier_row<LANES, 256>(out + i * PT, tab, digits + i * n, n, live);
 }
 
-extern "C" int zk_comb_weier(long long B, const void* tab, const void* digits, void* out,
+// lanes = 1 or 4 lanes a row (comb_plan); tab in Montgomery form; digits
+// 16-byte aligned.
+extern "C" int zk_comb_weier(long long B, int lanes, const void* tab, const void* digits, void* out,
                              void* stream) {
     if (B == 0) return 0;
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-    comb_weier_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        B, (const uint32_t*)tab, (const uint8_t*)digits, (uint32_t*)out);
+    if (lanes != 1 && lanes != ZK_TEAM) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((B * lanes + COMB_THREADS - 1) / COMB_THREADS);
+    cudaStream_t st = (cudaStream_t)stream;
+    const uint32_t* t = (const uint32_t*)tab;
+    const uint8_t* d = (const uint8_t*)digits;
+    if (lanes == 1) {
+        comb_weier_kernel<1><<<blocks, COMB_THREADS, 0, st>>>(B, t, d, 32, (uint32_t*)out);
+    } else {
+        comb_weier_kernel<ZK_TEAM><<<blocks, COMB_THREADS, 0, st>>>(B, t, d, 32, (uint32_t*)out);
+    }
     return (int)cudaGetLastError();
+}
+
+// Warps of the one-lane comb_weier kernel that one SM holds at once, for
+// comb_plan.
+extern "C" int zk_comb_weier_resident_warps(int* warps) {
+    int blocks = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, comb_weier_kernel<1>, COMB_THREADS, 0);
+    *warps = blocks * (COMB_THREADS / 32);
+    return (int)err;
 }

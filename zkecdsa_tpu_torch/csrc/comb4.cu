@@ -16,10 +16,16 @@
 // zk_comb4_entries: position bases [R, 64, 3, 9] -> tables [R, 64, 16, 3,
 // 9]: one thread per (base, position) builds the 16 entries by doubling the
 // entry set: m_k = dbl(entry k/2), entries k..2k-1 = entries 0..k-1 + m_k.
+// The prove's call writes them in Montgomery form (x * 2^288 mod p), the
+// form zk_mul_comb4 reads, so neither kernel converts an entry; the
+// canonical form (48 more products a (base, position)) is a flag for the
+// tests and chip_smoke.py.
 //
-// zk_mul_comb4: tables [R, 64, 16, 3, 9] and MSB-first nibbles [R, S, 64]
-// -> [R, S, 3, 9]: 64 gather-adds from the row's own table per scalar, no
-// doublings, one thread per scalar.  Replaces curve_ops.py:218 mul_comb4.
+// zk_mul_comb4: Montgomery tables [R, 64, 16, 3, 9] and MSB-first nibbles
+// [R, S, 64] (one a byte) -> [R, S, 3, 9] canonical: 64 gather-adds from
+// the row's own table per scalar, no doublings (comb.cuh comb_weier_row),
+// a team of four lanes or one lane a scalar by ops/curve_ops.py::comb_plan.
+// Replaces curve_ops.py:218 mul_comb4.
 //
 // Every operation is a complete formula in the plain version's order
 // (ops/curve_ops.py), so the projective results are the same integers.
@@ -28,13 +34,16 @@
 // doublings per base in one dependent chain (latency-bound: 256 chains at
 // N=256 on a card of 132 SMs, so the team cuts the chain, 1,008 rounds of
 // one product instead of 3,276 products); the entries are 3 doublings and
-// 14 adds per (base, position); the multiply is 64 adds per scalar (N*80
-// threads) reading 64 scattered 108-byte entries of a 110 KB per-base
-// table, which L2 holds.
+// 14 adds per (base, position); the multiply is 64 adds per scalar
+// reading 64 scattered 108-byte entries of a 110 KB per-base table, which
+// L2 holds.  At N=256 its 20,480 scalars leave the card under-filled, so
+// a scalar's chain of 64 adds sets the time and the team takes it: 5
+// rounds an add instead of 14 products, the next entry loaded ahead, a
+// scalar's 64 nibbles in four 16-byte loads.
 
 #include <cuda_runtime.h>
 
-#include "curve.cuh"
+#include "comb.cuh"
 
 namespace {
 
@@ -53,6 +62,17 @@ __global__ void __launch_bounds__(BASES * ZK_TEAM) comb4_bases_kernel(
     team_comb_bases<CID, 4, true>(bases + r * 64 * PT, P + r * PT, 64, live);
 }
 
+// an entry in Montgomery form (MONT) or canonical standard form
+template <bool MONT>
+__device__ __forceinline__ void entry_store(uint32_t* g, const Pt<CID>& P) {
+    if constexpr (MONT) {
+        pt_store_raw<CID>(g, P);
+    } else {
+        pt_store<CID>(g, P);
+    }
+}
+
+template <bool MONT>
 __global__ void comb4_entries_kernel(long long RJ, const uint32_t* __restrict__ bases,
                                      uint32_t* __restrict__ tab) {
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -60,32 +80,31 @@ __global__ void comb4_entries_kernel(long long RJ, const uint32_t* __restrict__ 
     uint32_t* t = tab + idx * 16 * PT;  // (base, position) row of 16 entries
     Pt<CID> E[16], m;
     pt_identity<CID>(E[0]);
-    pt_store<CID>(t, E[0]);
+    entry_store<MONT>(t, E[0]);
     pt_load<CID>(E[1], bases + idx * PT);
-    pt_store<CID>(t + PT, E[1]);
+    entry_store<MONT>(t + PT, E[1]);
     for (int k = 2; k < 16; k *= 2) {
         pt_dbl<CID>(m, E[k / 2]);
         for (int s = 0; s < k; ++s) {
             pt_add<CID>(E[k + s], E[s], m);
-            pt_store<CID>(t + (k + s) * PT, E[k + s]);
+            entry_store<MONT>(t + (k + s) * PT, E[k + s]);
         }
     }
 }
 
-__global__ void mul_comb4_kernel(long long RS, long long S, const uint32_t* __restrict__ tab,
-                                 const uint8_t* __restrict__ digits, uint32_t* __restrict__ out) {
-    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= RS) return;
-    const uint32_t* t = tab + (idx / S) * TAB;
-    const uint8_t* d = digits + idx * 64;
-    Pt<CID> acc, tmp, e;
-    pt_identity<CID>(acc);
-    for (int j = 0; j < 64; ++j) {
-        pt_load<CID>(e, t + (j * 16 + d[j]) * PT);
-        pt_add<CID>(tmp, acc, e);
-        acc = tmp;
+// n = 64 positions, passed at run time (as comb_weier_kernel's n)
+template <int LANES>
+__global__ void __launch_bounds__(COMB_THREADS) mul_comb4_kernel(
+    long long RS, long long S, const uint32_t* __restrict__ tab, const uint8_t* __restrict__ digits,
+    int n, uint32_t* __restrict__ out) {
+    const long long row = ((long long)blockIdx.x * COMB_THREADS + threadIdx.x) / LANES;
+    if constexpr (LANES == 1) {
+        if (row >= RS) return;
     }
-    pt_store<CID>(out + idx * PT, acc);
+    // a team past RS runs scalar RS-1 and stores nothing
+    const bool live = row < RS;
+    const long long i = live ? row : RS - 1;
+    comb_weier_row<LANES, 16>(out + i * PT, tab + (i / S) * TAB, digits + i * n, n, live);
 }
 
 unsigned grid_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
@@ -99,17 +118,43 @@ extern "C" int zk_comb4_bases(long long R, const void* P, void* bases, void* str
     return (int)cudaGetLastError();
 }
 
-extern "C" int zk_comb4_entries(long long R, const void* bases, void* tab, void* stream) {
+// mont != 0: the entries in Montgomery form (mul_comb4's), else canonical.
+extern "C" int zk_comb4_entries(long long R, int mont, const void* bases, void* tab, void* stream) {
     if (R == 0) return 0;
-    comb4_entries_kernel<<<grid_for(R * 64, 64), 64, 0, (cudaStream_t)stream>>>(
-        R * 64, (const uint32_t*)bases, (uint32_t*)tab);
+    const unsigned blocks = grid_for(R * 64, 64);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (mont) {
+        comb4_entries_kernel<true><<<blocks, 64, 0, st>>>(R * 64, (const uint32_t*)bases, (uint32_t*)tab);
+    } else {
+        comb4_entries_kernel<false><<<blocks, 64, 0, st>>>(R * 64, (const uint32_t*)bases, (uint32_t*)tab);
+    }
     return (int)cudaGetLastError();
 }
 
-extern "C" int zk_mul_comb4(long long R, long long S, const void* tab, const void* digits,
+// lanes = 1 or 4 lanes a scalar (comb_plan); tab in Montgomery form;
+// digits 16-byte aligned.
+extern "C" int zk_mul_comb4(long long R, long long S, int lanes, const void* tab, const void* digits,
                             void* out, void* stream) {
     if (R * S == 0) return 0;
-    mul_comb4_kernel<<<grid_for(R * S, 128), 128, 0, (cudaStream_t)stream>>>(
-        R * S, S, (const uint32_t*)tab, (const uint8_t*)digits, (uint32_t*)out);
+    if (lanes != 1 && lanes != ZK_TEAM) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = grid_for(R * S * lanes, COMB_THREADS);
+    cudaStream_t st = (cudaStream_t)stream;
+    const uint32_t* t = (const uint32_t*)tab;
+    const uint8_t* d = (const uint8_t*)digits;
+    if (lanes == 1) {
+        mul_comb4_kernel<1><<<blocks, COMB_THREADS, 0, st>>>(R * S, S, t, d, 64, (uint32_t*)out);
+    } else {
+        mul_comb4_kernel<ZK_TEAM><<<blocks, COMB_THREADS, 0, st>>>(R * S, S, t, d, 64, (uint32_t*)out);
+    }
     return (int)cudaGetLastError();
+}
+
+// Warps of the one-lane mul_comb4 kernel that one SM holds at once, for
+// comb_plan.
+extern "C" int zk_mul_comb4_resident_warps(int* warps) {
+    int blocks = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mul_comb4_kernel<1>, COMB_THREADS, 0);
+    *warps = blocks * (COMB_THREADS / 32);
+    return (int)err;
 }

@@ -17,16 +17,17 @@
 // base; then for k = 2, 4, ..., 128 thread s < k computes m_k = dbl(entry
 // k/2) (every such thread the same value, so no thread waits on another)
 // and entry k + s = entry s + m_k.  Then thread d converts entry d to
-// affine with a Fermat inverse of its Z (288 squarings and a multiply a set
-// bit of p - 2: 416 products for P-256, 392 for Tom-256; one inverse per
-// thread runs as long as one batch inverse would, and the card has spare
-// lanes at 32 or 64 blocks) and writes
-//   * P-256 (canon [R, 32, 256, 3, 9]): (x, y, 1) standard form, the
-//     identity as (0, 1, 0), the form comb_weier reads;
-//   * Tom-256: the mixed-add rows (x, y, x+y, d*x*y, a*x) twice, standard
-//     form to canon and Montgomery form (x * 2^288 mod p) to mont, each
-//     [R, 32, 256, 5, 9]: MixedComb's two forms, so the host converts
-//     nothing.
+// affine with a Fermat inverse of its Z (field.cuh fe_inv, a 4-bit window:
+// 298 products for P-256, 312 for Tom-256; one inverse per thread runs as
+// long as one batch inverse would, and the card has spare lanes at 32 or
+// 64 blocks) and writes each entry twice, standard form to canon and
+// Montgomery form (x * 2^288 mod p) to mont, so the host converts nothing
+// and the comb kernels read mont as it stands:
+//   * P-256 ([R, 32, 256, 3, 9] each): (x, y, 1), the identity as
+//     (0, 1, 0) (Montgomery: (x R, y R, R), (0, R, 0)), the table of
+//     comb_weier (WeierComb's two forms);
+//   * Tom-256 ([R, 32, 256, 5, 9] each): the mixed-add rows (x, y, x+y,
+//     d*x*y, a*x), MixedComb's two forms.
 //
 // Every point operation is the complete formula the plain version
 // (ops/curve_ops.py) takes, in its order, and every field operation
@@ -117,7 +118,13 @@ __global__ void __launch_bounds__(ENTRIES) comb8_entries_kernel(
         fe_set_zero(one);
         one[0] = 1u;  // standard form
         uint32_t* oc = canon + (w * ENTRIES + s) * PT;
-        fe_from_mont(t, x, M);  // 0 for the identity
+        uint32_t* om = mont + (w * ENTRIES + s) * PT;
+        fe_store(om, x);  // 0 for the identity
+        fe_select(t, inf, M.one, y);
+        fe_store(om + ZK_NL, t);
+        fe_select(t, inf, zero, M.one);
+        fe_store(om + 2 * ZK_NL, t);
+        fe_from_mont(t, x, M);
         fe_store(oc, t);
         fe_from_mont(t, y, M);
         fe_select(t, inf, one, t);
@@ -142,11 +149,11 @@ extern "C" int zk_comb8_bases(int curve, long long R, const void* P, void* bases
     return bad ? bad : (int)cudaGetLastError();
 }
 
-// mont is written only for Tom-256 (and may be null for the others)
+// both forms are written: canon (standard form) and mont (Montgomery form)
 extern "C" int zk_comb8_entries(int curve, long long R, const void* bases, void* canon, void* mont,
                                 void* stream) {
     if (R == 0) return 0;
-    if (curve == ZK_CURVE_TOM && mont == nullptr) return (int)cudaErrorInvalidValue;
+    if (canon == nullptr || mont == nullptr) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int bad = zk_dispatch_curve(curve, [&](auto c) {
         constexpr int CID = decltype(c)::value;

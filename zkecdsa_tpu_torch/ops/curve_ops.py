@@ -57,6 +57,7 @@ __all__ = [
     "comb_resident",
     "CombPlan",
     "MixedComb",
+    "WeierComb",
     "sum_reduce",
     "window_table",
     "shamir",
@@ -435,23 +436,28 @@ class WeierOps(CurveOps):
         z3 = f.wsmall(f.wmul(yz2, yy), 4)
         return torch.stack([x3, y3, z3], dim=-2)
 
-    def comb8_entries(self, bases: torch.Tensor) -> torch.Tensor:
+    def comb8_entries(self, bases: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The comb table from its window bases: [..., 32, 3, 9] ->
-        [..., 32, 256, 3, 9], entry [j][d] the affine point d * 2^(8j) *
-        base as (x, y, 1); d = 0 is the identity (0, 1, 0), the form
-        :func:`comb_weier` reads."""
+        (canonical, Montgomery) [..., 32, 256, 3, 9], entry [j][d] the
+        affine point d * 2^(8j) * base as (x, y, 1); d = 0 is the identity
+        (0, 1, 0).  The Montgomery form (x * 2^288 mod p, the identity
+        (0, 2^288 mod p, 0)) is made with Python integers
+        (:meth:`FieldT.pack_mont`)."""
         f = self.f
         x, y, inf = self._comb8_affine(bases)
         one = f.const(1, bases.device)
         y = torch.where(inf[..., None], one, f.canon(y))
         z = torch.where(inf[..., None], torch.zeros_like(one), one)
-        return torch.stack([f.canon(x), y, z.expand_as(y)], dim=-2)
+        canon = torch.stack([f.canon(x), y, z.expand_as(y)], dim=-2)
+        return canon, f.pack_mont(f.unpack(canon), bases.device).reshape(canon.shape)
 
-    def comb_table(self, P: torch.Tensor) -> torch.Tensor:
-        """The comb table of a base, [..., 3, 9] -> [..., 32, 256, 3, 9]
-        (reference ``curve_ops.py:307 comb_table``, there projective, here
-        affine): :meth:`comb8_bases`, then :meth:`comb8_entries`."""
-        return self.comb8_entries(self.comb8_bases(P))
+    def comb_table(self, P: torch.Tensor) -> "WeierComb":
+        """The comb table of a base, [3, 9] -> a :class:`WeierComb` of
+        [32, 256, 3, 9] (reference ``curve_ops.py:307 comb_table``, there
+        projective, here affine): :meth:`comb8_bases`, then
+        :meth:`comb8_entries`."""
+        canon, mont = self.comb8_entries(self.comb8_bases(P))
+        return WeierComb(canon, mont)
 
     def neg(self, P: torch.Tensor) -> torch.Tensor:
         return torch.stack([P[..., 0, :], self.f.neg(P[..., 1, :]), P[..., 2, :]], dim=-2)
@@ -621,6 +627,13 @@ def _check_points(ops: CurveOps, *ts: torch.Tensor) -> None:
                 f"expected int32 [..., {ops.NCOORD}, {NLIMBS}] points, got "
                 f"{t.dtype} {tuple(t.shape)}"
             )
+
+
+def _aligned(d: torch.Tensor) -> torch.Tensor:
+    """Contiguous digits whose rows start on 16-byte boundaries: the comb
+    kernels load a row's digits 16 bytes at a time (rows of 32 or 64)."""
+    d = d.contiguous()
+    return d if d.data_ptr() % 16 == 0 else d.clone()
 
 
 def ec_add(ops: CurveOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
@@ -907,19 +920,41 @@ class MixedComb:
         return MixedComb(self.canon.to(device), self.mont.to(device))
 
 
-_COMB_THREADS = 128  # threads of a comb_mixed block (csrc/comb.cu COMB_THREADS)
+@dataclasses.dataclass(frozen=True)
+class WeierComb:
+    """The P-256 comb table of one base, [32, 256, 3, 9] (entry [j][d] =
+    the affine point d * 2^(8j) * base as (x, y, 1), the identity (0, 1,
+    0) for d = 0), in two forms of the same values: ``canon``, canonical
+    standard form (the plain version's, the tests' and ``carry.py``'s),
+    and ``mont``, x * 2^288 mod p (the form :func:`comb_weier`'s kernel
+    reads, so it converts no entry).  Built once per parameter set
+    (``protocol.batch.DeviceParams``, :func:`comb_table`).  A sibling of
+    :class:`MixedComb`, not the same class: the entries differ in kind
+    (points, not mixed-add rows) and each wrapper checks that it was
+    given the table its kernel reads."""
+
+    canon: torch.Tensor
+    mont: torch.Tensor
+
+    def to(self, device) -> "WeierComb":
+        return WeierComb(self.canon.to(device), self.mont.to(device))
 
 
-def comb_resident(device) -> int:
-    """Rows that :func:`comb_mixed`'s one-lane kernel keeps resident on a
-    CUDA device at once: the warps of the kernel the card holds, 32 rows
-    a warp."""
-    return _resident_warps("zk_comb_mixed_resident_warps", _index(device)) * 32
+_COMB_THREADS = 128  # threads of a comb block (csrc/comb.cuh COMB_THREADS)
+
+
+def comb_resident(device, kernel: str) -> int:
+    """Rows that the one-lane kernel of ``kernel`` (:func:`comb_mixed`,
+    :func:`comb_weier` or :func:`mul_comb4`) keeps resident on a CUDA
+    device at once: the warps of the kernel the card holds (C entry
+    ``zk_<kernel>_resident_warps``), 32 rows a warp."""
+    return _resident_warps(f"zk_{kernel}_resident_warps", _index(device)) * 32
 
 
 @dataclasses.dataclass(frozen=True)
 class CombPlan:
-    """Launch geometry of :func:`comb_mixed` for B rows: ``lanes`` lanes a
+    """Launch geometry of a comb kernel (:func:`comb_mixed`,
+    :func:`comb_weier`, :func:`mul_comb4`) for B rows: ``lanes`` lanes a
     row (4, a team, or 1), ``rows_per_block`` rows in each of ``blocks``
     blocks of 128 threads."""
 
@@ -930,16 +965,18 @@ class CombPlan:
 
 def comb_plan(B: int, resident: int, lanes: int | None = None) -> CombPlan:
     """A team of four lanes a row when the B rows, one lane each, leave
-    the card under-filled (B < ``resident``, :func:`comb_resident`): a
-    row's chain is then the call's time, and the team runs a window in 3
-    rounds instead of 9 products.  One lane a row when the rows fill the
-    card: there the instruction count sets the time, and the team's
-    exchanges and its every-lane product cost more than its shorter chain
-    saves.  ``lanes`` forces the geometry (tests and chip_smoke.py)."""
+    the card under-filled (B < ``resident``, the kernel's
+    :func:`comb_resident`): a row's chain is then the call's time, and
+    the team runs a window in fewer rounds than the lane's products (a
+    Tom-256 mixed add in 3 rounds instead of 9, a P-256 add in 5 instead
+    of 14).  One lane a row when the rows fill the card: there the
+    instruction count sets the time, and the team's exchanges and its
+    every-lane product cost more than its shorter chain saves.  ``lanes``
+    forces the geometry (tests and chip_smoke.py)."""
     if lanes is None:
         lanes = 4 if B < resident else 1
     if lanes not in (1, 4):
-        raise ValueError(f"comb_mixed runs 1 or 4 lanes a row, not {lanes}")
+        raise ValueError(f"a comb kernel runs 1 or 4 lanes a row, not {lanes}")
     rows = _COMB_THREADS // lanes
     return CombPlan(lanes, rows, -(-B // rows))
 
@@ -962,13 +999,11 @@ def comb_mixed(comb: MixedComb, d8: torch.Tensor, lanes: int | None = None) -> t
         raise ValueError(f"expected uint8 [..., 64] digits, got {d8.dtype} {tuple(d8.shape)}")
     if tabs.device != d8.device or d8.device.type != "cuda":
         raise ValueError("comb_mixed operands must be on one CUDA device")
-    tabs, d8 = tabs.contiguous(), d8.contiguous()
-    if d8.data_ptr() % 16:  # the kernel loads a row's digits 16 bytes at a time
-        d8 = d8.clone()
+    tabs, d8 = tabs.contiguous(), _aligned(d8)
     batch = d8.shape[:-1]
     out = torch.empty(batch + (4, NLIMBS), dtype=torch.int32, device=d8.device)
     B = batch.numel()
-    plan = comb_plan(B, comb_resident(d8.device), lanes)
+    plan = comb_plan(B, comb_resident(d8.device, "comb_mixed"), lanes)
     code = lib.zk_comb_mixed(B, plan.lanes, tabs.data_ptr(), d8.data_ptr(), out.data_ptr(), _stream(d8))
     _build.check(code, "zk_comb_mixed")
     comb_mixed.launches += 1
@@ -1040,14 +1075,17 @@ def shamir(tp: torch.Tensor, dP: torch.Tensor, tq: torch.Tensor, dQ: torch.Tenso
 shamir.launches = 0
 
 
-def comb4_table(P: torch.Tensor) -> torch.Tensor:
+def comb4_table(P: torch.Tensor, canon: bool = False) -> torch.Tensor:
     """Per-base 4-bit comb tables of P-256 points: [..., 3, 9] ->
     [..., 64, 16, 3, 9], entry [j][d] = d * 16^(63-j) * P (replaces
     ``curve_ops.py:194 comb4_table``): :func:`comb4_bases`, then
-    :func:`comb4_entries`.  A CPU tensor takes ``p256_ops.comb4_table``."""
+    :func:`comb4_entries`.  The table is in the form :func:`mul_comb4`
+    takes on the same device: a CPU tensor takes ``p256_ops.comb4_table``,
+    canonical; on the card it is in Montgomery form unless ``canon``
+    (tests and chip_smoke.py)."""
     if P.device.type == "cpu":
         return p256_ops.comb4_table(P)
-    return comb4_entries(comb4_bases(P))
+    return comb4_entries(comb4_bases(P), canon)
 
 
 def comb4_bases(P: torch.Tensor) -> torch.Tensor:
@@ -1070,11 +1108,14 @@ def comb4_bases(P: torch.Tensor) -> torch.Tensor:
 comb4_bases.launches = 0
 
 
-def comb4_entries(bases: torch.Tensor) -> torch.Tensor:
-    """The comb tables from their position bases: [..., 64, 3, 9] ->
-    [..., 64, 16, 3, 9].  Kernel ``csrc/comb4.cu``: one thread per (base,
-    position) builds the 16 entries in the plain version's order.  A CPU
-    tensor takes ``p256_ops.comb4_entries``."""
+def comb4_entries(bases: torch.Tensor, canon: bool = False) -> torch.Tensor:
+    """The comb tables from their canonical position bases: [..., 64, 3,
+    9] -> [..., 64, 16, 3, 9].  Kernel ``csrc/comb4.cu``: one thread per
+    (base, position) builds the 16 entries in the plain version's order
+    and writes them in Montgomery form (x * 2^288 mod p), the form
+    :func:`mul_comb4`'s kernel reads, or canonical if ``canon`` (tests and
+    chip_smoke.py).  A CPU tensor takes ``p256_ops.comb4_entries``,
+    canonical."""
     if bases.device.type == "cpu":
         return p256_ops.comb4_entries(bases)
     lib = _build.load()
@@ -1083,7 +1124,9 @@ def comb4_entries(bases: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected [..., 64, 3, 9] position bases, got {tuple(bases.shape)}")
     bases = bases.contiguous()
     out = torch.empty(bases.shape[:-2] + _P256_TABLE, dtype=torch.int32, device=bases.device)
-    code = lib.zk_comb4_entries(bases.shape[:-3].numel(), bases.data_ptr(), out.data_ptr(), _stream(bases))
+    code = lib.zk_comb4_entries(
+        bases.shape[:-3].numel(), int(not canon), bases.data_ptr(), out.data_ptr(), _stream(bases)
+    )
     _build.check(code, "zk_comb4_entries")
     comb4_entries.launches += 1
     return out
@@ -1092,13 +1135,17 @@ def comb4_entries(bases: torch.Tensor) -> torch.Tensor:
 comb4_entries.launches = 0
 
 
-def mul_comb4(tab: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+def mul_comb4(tab: torch.Tensor, digits: torch.Tensor, lanes: int | None = None) -> torch.Tensor:
     """S scalars per base from per-base comb tables: tab [..., 64, 16, 3,
     9] and MSB-first nibbles [..., S, 64] (uint8, the same leading dims) ->
-    [..., S, 3, 9]; 64 gather-adds per scalar from the row's own table.
-    Kernel ``csrc/comb4.cu`` (replaces ``curve_ops.py:218 mul_comb4``),
-    one thread per scalar, in the plain version's order.  A CPU tensor
-    takes ``p256_ops.mul_comb4``."""
+    [..., S, 3, 9] canonical; 64 gather-adds per scalar from the row's own
+    table.  Kernel ``csrc/comb4.cu`` (replaces ``curve_ops.py:218
+    mul_comb4``) on a table in Montgomery form, as :func:`comb4_table`
+    gives it on the card, in the plain version's order, a team of four
+    lanes or one lane a scalar by :func:`comb_plan` (``lanes`` forces it;
+    tests and chip_smoke.py only).  A CPU tensor takes
+    ``p256_ops.mul_comb4`` on a canonical table, as :func:`comb4_table`
+    gives it on the CPU."""
     if digits.device.type == "cpu":
         return p256_ops.mul_comb4(tab, digits)
     lib = _build.load()
@@ -1108,10 +1155,13 @@ def mul_comb4(tab: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected int32 {tuple(lead)} + [64, 16, 3, 9] tables, got {tab.dtype} {tuple(tab.shape)}")
     if tab.device != digits.device:
         raise ValueError("tables and digits on different devices")
-    tab, digits = tab.contiguous(), digits.contiguous()
+    tab, digits = tab.contiguous(), _aligned(digits)
     S = digits.shape[-2]
     out = torch.empty(digits.shape[:-1] + (3, NLIMBS), dtype=torch.int32, device=digits.device)
-    code = lib.zk_mul_comb4(lead.numel(), S, tab.data_ptr(), digits.data_ptr(), out.data_ptr(), _stream(digits))
+    plan = comb_plan(lead.numel() * S, comb_resident(digits.device, "mul_comb4"), lanes)
+    code = lib.zk_mul_comb4(
+        lead.numel(), S, plan.lanes, tab.data_ptr(), digits.data_ptr(), out.data_ptr(), _stream(digits)
+    )
     _build.check(code, "zk_mul_comb4")
     mul_comb4.launches += 1
     return out
@@ -1120,23 +1170,32 @@ def mul_comb4(tab: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 mul_comb4.launches = 0
 
 
-def comb_weier(comb: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
-    """Fixed-base multiply on P-256 from a comb table [32, 256, 3, 9] and
-    LSB-first byte digits [..., 32] (uint8) -> [..., 3, 9]: one complete
-    add per window, in window order.  Kernel ``csrc/comb.cu`` (replaces
-    ``curve_ops.py:330 mul_comb``).  A CPU tensor takes
-    ``p256_ops.mul_comb``."""
+def comb_weier(comb: WeierComb, d8: torch.Tensor, lanes: int | None = None) -> torch.Tensor:
+    """Fixed-base multiply on P-256 from a comb table and LSB-first byte
+    digits [..., 32] (uint8) -> [..., 3, 9] canonical: one complete add
+    per window, in window order.  Kernel ``csrc/comb.cu`` (replaces
+    ``curve_ops.py:330 mul_comb``) on ``comb.mont``, the table in
+    Montgomery form, geometry from :func:`comb_plan` (``lanes`` forces
+    it; tests and chip_smoke.py only).  A CPU tensor takes
+    ``p256_ops.mul_comb`` on ``comb.canon``.  ``comb`` is a
+    :class:`WeierComb`: a bare tensor raises, so a canonical table never
+    reaches the kernel."""
+    if not isinstance(comb, WeierComb):
+        raise TypeError(f"comb_weier takes a WeierComb (both forms of the table), not {type(comb).__name__}")
     if d8.device.type == "cpu":
-        return p256_ops.mul_comb(comb, d8)
+        return p256_ops.mul_comb(comb.canon, d8)
     lib = _build.load()
-    _check_digits(d8, 32, "byte digits")
-    if tuple(comb.shape) != (32, 256, 3, NLIMBS) or comb.dtype != torch.int32:
-        raise ValueError(f"expected int32 [32, 256, 3, 9] tables, got {comb.dtype} {tuple(comb.shape)}")
-    if comb.device != d8.device:
+    tab = comb.mont
+    _check_digits(d8, COMB_WINDOWS, "byte digits")
+    if tuple(tab.shape) != (COMB_WINDOWS, COMB_ENTRIES, 3, NLIMBS) or tab.dtype != torch.int32:
+        raise ValueError(f"expected int32 [32, 256, 3, 9] tables, got {tab.dtype} {tuple(tab.shape)}")
+    if tab.device != d8.device:
         raise ValueError("table and digits on different devices")
-    comb, d8 = comb.contiguous(), d8.contiguous()
+    tab, d8 = tab.contiguous(), _aligned(d8)
     out = torch.empty(d8.shape[:-1] + (3, NLIMBS), dtype=torch.int32, device=d8.device)
-    code = lib.zk_comb_weier(out.shape[:-2].numel(), comb.data_ptr(), d8.data_ptr(), out.data_ptr(), _stream(d8))
+    B = out.shape[:-2].numel()
+    plan = comb_plan(B, comb_resident(d8.device, "comb_weier"), lanes)
+    code = lib.zk_comb_weier(B, plan.lanes, tab.data_ptr(), d8.data_ptr(), out.data_ptr(), _stream(d8))
     _build.check(code, "zk_comb_weier")
     comb_weier.launches += 1
     return out
@@ -1170,11 +1229,11 @@ def comb8_bases(ops: CurveOps, P: torch.Tensor) -> torch.Tensor:
 comb8_bases.launches = 0
 
 
-def comb8_entries(ops: CurveOps, bases: torch.Tensor):
-    """The comb tables from their window bases [R, 32, C, 9]: for P-256
-    the affine table [R, 32, 256, 3, 9] (identity (0, 1, 0)); for Tom-256
-    the mixed-add rows [R, 32, 256, 5, 9] as (canonical, Montgomery).
-    Kernel ``csrc/comb8.cu`` (replaces the entries of
+def comb8_entries(ops: CurveOps, bases: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The comb tables from their window bases [R, 32, C, 9], as
+    (canonical, Montgomery): for P-256 the affine table [R, 32, 256, 3, 9]
+    (identity (0, 1, 0)); for Tom-256 the mixed-add rows [R, 32, 256, 5,
+    9].  Kernel ``csrc/comb8.cu`` (replaces the entries of
     ``zkecdsa_tpu/ops/curve_ops.py:307 comb_table`` and the affine rows of
     ``:666 comb_table_mixed``): one block a window builds the 256 entries
     in shared memory in the plain version's order, then converts each to
@@ -1188,31 +1247,31 @@ def comb8_entries(ops: CurveOps, bases: torch.Tensor):
         raise ValueError(f"expected [R, 32, {ops.NCOORD}, 9] window bases, got {tuple(bases.shape)}")
     bases = bases.contiguous()
     R = bases.shape[0]
-    mixed = isinstance(ops, EdwardsOps)
-    nc = EdwardsOps.MIXED_NC if mixed else ops.NCOORD
+    nc = EdwardsOps.MIXED_NC if isinstance(ops, EdwardsOps) else ops.NCOORD
     canon = torch.empty((R, COMB_WINDOWS, COMB_ENTRIES, nc, NLIMBS), dtype=torch.int32, device=bases.device)
-    mont = torch.empty_like(canon) if mixed else None
+    mont = torch.empty_like(canon)
     code = lib.zk_comb8_entries(
-        ops.curve_id, R, bases.data_ptr(), canon.data_ptr(),
-        mont.data_ptr() if mixed else None, _stream(bases),
+        ops.curve_id, R, bases.data_ptr(), canon.data_ptr(), mont.data_ptr(), _stream(bases)
     )
     _build.check(code, "zk_comb8_entries")
     comb8_entries.launches += 1
-    return (canon, mont) if mixed else canon
+    return canon, mont
 
 
 comb8_entries.launches = 0
 
 
-def comb_table(P: torch.Tensor) -> torch.Tensor:
-    """The P-256 comb table of one base: canonical [3, 9] -> [32, 256, 3,
-    9], entry [j][d] the affine point d * 2^(8j) * P, (0, 1, 0) for d = 0
-    (replaces ``zkecdsa_tpu/ops/curve_ops.py:307 comb_table``, whose table
-    is projective): :func:`comb8_bases`, then :func:`comb8_entries`.  A
-    CPU tensor takes ``p256_ops.comb_table``."""
+def comb_table(P: torch.Tensor) -> WeierComb:
+    """The P-256 comb table of one base: canonical [3, 9] -> a
+    :class:`WeierComb` of [32, 256, 3, 9], entry [j][d] the affine point
+    d * 2^(8j) * P, (0, 1, 0) for d = 0 (replaces
+    ``zkecdsa_tpu/ops/curve_ops.py:307 comb_table``, whose table is
+    projective): :func:`comb8_bases`, then :func:`comb8_entries`, which
+    writes both forms.  A CPU tensor takes ``p256_ops.comb_table``."""
     if P.device.type == "cpu":
         return p256_ops.comb_table(P)
-    return comb8_entries(p256_ops, comb8_bases(p256_ops, P[None]))[0]
+    canon, mont = comb8_entries(p256_ops, comb8_bases(p256_ops, P[None]))
+    return WeierComb(canon[0], mont[0])
 
 
 def comb_table_mixed(P: torch.Tensor) -> MixedComb:

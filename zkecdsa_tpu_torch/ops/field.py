@@ -9,11 +9,12 @@ element is nine little-endian 32-bit limbs in an ``int32`` tensor
 [0, p), in standard (not Montgomery) form.  Nine limbs because the Tom-256
 base prime is 258 bits.  Canonical limbs make the 4-bit window digits and
 the comb's byte digits a reinterpretation of the limbs (:func:`bytes_le`),
-not a computation.  One exception: a constant table built once per
-parameter set may also be held in the kernels' Montgomery form
-(:meth:`FieldT.pack_mont`), so that a kernel reads it without converting
-it on every call; the wrapper that takes it says which form each side
-holds.
+not a computation.  Two exceptions, point tables held in the kernels'
+Montgomery form (x * 2^288 mod p, :meth:`FieldT.pack_mont`) so that a
+kernel reads an entry without converting it: the comb tables built once
+per parameter set (in both forms), and on the card the per-prove comb4
+tables, which one kernel writes and the next reads.  The wrapper that
+takes such a table says which form each side holds.
 
 The kernels (``csrc/field.cuh``) compute in Montgomery form inside a
 thread.  The plain PyTorch versions here compute the same functions in
@@ -345,6 +346,11 @@ class FieldT:
 
     def inv(self, a: torch.Tensor) -> torch.Tensor:
         return self.canon(self.winv(self.to_work(a)))
+
+    def from_mont(self, a: torch.Tensor) -> torch.Tensor:
+        """Canonical limbs of a * 2^-288 mod p: a table a kernel wrote in
+        its Montgomery form (:meth:`pack_mont`), back in standard form."""
+        return self.mul(a, self.const(pow(1 << (32 * NLIMBS), -1, self.p), a.device))
 
     @staticmethod
     def is_zero(a: torch.Tensor) -> torch.Tensor:

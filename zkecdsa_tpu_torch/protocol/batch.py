@@ -59,6 +59,7 @@ from ..ops.curve_ops import (
     COMB_ENTRIES,
     COMB_WINDOWS,
     MixedComb,
+    WeierComb,
     comb4_table,
     comb_mixed,
     comb_table,
@@ -109,12 +110,12 @@ def resolve_device(device=None) -> torch.device:
 class DeviceParams:
     """Device-side precomputation for one SystemParametersList: the window
     table of the P-256 generator G (host arithmetic, uploaded), the comb
-    table of the P-256 Pedersen base h, and the mixed-add comb tables of
-    the Tom-256 Pedersen bases g and h (one :class:`MixedComb`, canonical
-    and Montgomery form), both built on ``device`` by the comb kernels
-    (on the CPU, their plain versions).  Construct via
-    :func:`device_params_for` to share one instance per parameter set and
-    device."""
+    table of the P-256 Pedersen base h (a :class:`WeierComb`), and the
+    mixed-add comb tables of the Tom-256 Pedersen bases g and h (one
+    :class:`MixedComb`), each in canonical and Montgomery form, built on
+    ``device`` by the comb kernels (on the CPU, their plain versions).
+    Construct via :func:`device_params_for` to share one instance per
+    parameter set and device."""
 
     def __init__(self, params: SystemParametersList, device) -> None:
         self.params = params
@@ -124,17 +125,20 @@ class DeviceParams:
         self.comb_gh_tom = comb_table_mixed(
             tom_ops.pack_points([params.proof_group.g, params.proof_group.h], self.device)
         )
-        self._tabs: dict[str, torch.Tensor | MixedComb] | None = None
+        self._tabs: dict[str, torch.Tensor | MixedComb | WeierComb] | None = None
 
-    def tabs(self) -> dict[str, torch.Tensor | MixedComb]:
-        """The tables the phases take, on the device: ``gh_t8`` is the
-        :class:`MixedComb` that ``comb_mixed`` takes; ``g_t8`` and
-        ``h_t8`` are views of its canonical halves."""
+    def tabs(self) -> dict[str, torch.Tensor | MixedComb | WeierComb]:
+        """The tables the phases take, on the device: ``comb_h_n8`` is the
+        :class:`WeierComb` that ``comb_weier`` takes and ``h_n8`` the view
+        of its canonical form; ``gh_t8`` is the :class:`MixedComb` that
+        ``comb_mixed`` takes, and ``g_t8`` and ``h_t8`` are views of its
+        canonical halves."""
         if self._tabs is None:
             gh = self.comb_gh_tom
             self._tabs = {
                 "G": self.tab_G.to(self.device),
-                "h_n8": self.comb_h_nist,
+                "comb_h_n8": self.comb_h_nist,
+                "h_n8": self.comb_h_nist.canon,
                 "gh_t8": gh,
                 "g_t8": gh.canon[:COMB_WINDOWS],
                 "h_t8": gh.canon[COMB_WINDOWS:],
@@ -161,9 +165,9 @@ class DeviceParams:
     def _host_comb_weier(base) -> torch.Tensor:
         """[32, 256, 3, 9] P-256 comb table: entry [j][d] is the affine
         point d * 2^(8j) * base with Z = 1; d = 0 is the identity (0:1:0).
-        Python-integer curve arithmetic, an independent oracle of
-        :func:`comb_table` for the tests and chip_smoke.py; no entry point
-        calls it."""
+        Python-integer curve arithmetic, an independent oracle of the
+        canonical form of :func:`comb_table` for the tests and
+        chip_smoke.py; no entry point calls it."""
         p = p256.p
         coords: list[int] = []
         bj = base
@@ -268,14 +272,17 @@ def phase_a(tabs, pk, u1, u2, z1, s1, com_r, pkx_v, pkx_r, pky_v, pky_r,
     sR, Q = sq[:, 0], sq[:, 1]
     # comS1 = s1*R + com_r*h (pedersen.ts:53-58 with g := R), and D = Q -
     # comS1 + com_r*h = Q - s1*R: the per-instance constant of the
-    # even-round relation T1 = z*R + Q = T + D (see phase_b_flat)
-    Hc = comb_weier(tabs["h_n8"], bytes_le(com_r))
+    # even-round relation T1 = z*R + Q = T + D (see phase_b_flat).  One
+    # comb_weier call makes the rounds' r_i * h and com_r * h: [N, 81] rows,
+    # com_r's as the 81st of each instance
+    H = comb_weier(tabs["comb_h_n8"], bytes_le(torch.cat([r_rnd, com_r[:, None]], dim=1)))
+    Hr, Hc = H[:, :SECPARAM], H[:, SECPARAM]
     comS1 = ec_add(p256_ops, sR, Hc)
     D = ec_add(p256_ops, Q, p256_ops.neg(sR))
-    # 80 rounds: T_i = alpha_i * R from a per-instance comb table, and
-    # A_i = T_i + r_i * h (exp.ts:144-150)
+    # 80 rounds: T_i = alpha_i * R from a per-instance comb table (on the
+    # card in Montgomery form, the form mul_comb4 reads), and A_i = T_i +
+    # r_i * h (exp.ts:144-150)
     T = mul_comb4(comb4_table(R), nibbles(alpha))  # [N, 80, 3, 9]
-    Hr = comb_weier(tabs["h_n8"], bytes_le(r_rnd))
     A = ec_add(p256_ops, T, Hr)
     # one P-256 affine pass: rows [R, Q, comS1] ++ T(80) ++ A(80)
     nx, ny, _ = to_affine(p256_ops, torch.cat([torch.stack([R, Q, comS1], dim=1), T, A], dim=1))
