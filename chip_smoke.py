@@ -15,9 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    prover gives it and at the verifier's, and time both with CUDA events
    (``straus_msm`` at every shape of one verify and of path B, each with
    its schedule-independent bound and its launches per path; ``shamir``'s
-   two calls apart; ``comb_mixed`` at its four calls, ``mul_comb4`` at its
-   one and ``comb_weier`` at its one ([N, 81]) and at the two calls it
-   merged, each under ``comb_plan``'s geometry and under the other one;
+   two calls apart; ``window_table`` beside the 15 ``ec_add`` launches a
+   table it replaced, and phase A's one [N, 2] ``ec_add`` call beside
+   the two [N] launches it merged; ``comb_mixed`` at its four calls,
+   ``mul_comb4`` at its one and ``comb_weier`` at its one ([N, 81]) and
+   at the two calls it merged, each under ``comb_plan``'s geometry and
+   under the other one;
    ``comb4_entries`` in Montgomery form (the form ``mul_comb4`` reads)
    beside its canonical option; ``to_affine`` at its seven calls
    under ``affine_plan``'s group and at group 1; ``ring_fold`` at its two
@@ -43,7 +46,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    warm-up and three timed reps on the same tapes, each giving the same
    proof bytes; proofs 0..7 must equal, byte for byte, those of the host
    prover ``prove_signature_list`` run in worker processes meanwhile; the
-   launch counts are read over the first timed rep;
+   launch counts are read over the first timed rep; then one more prove
+   under ``torch.profiler`` (``utils.profiling.trace``): the device's busy
+   share of its wall, and the device time of ``ec_add``,
+   ``window_table`` and ``comb4_entries`` in the trace beside phase 3's
+   CUDA-event times;
    phase 3 also holds the MSM backends' kernels (``bucket_sums``,
    ``bucket_fold``, ``msm_ladder``) against their plain versions, and
    ``straus_msm`` against them (the Straus-bucket crossover);
@@ -252,12 +259,13 @@ def _kernel_fns() -> dict:
         shamir,
         straus_msm,
         to_affine,
+        window_table,
     )
     from zkecdsa_tpu_torch.ops.field import chord, field_mul, field_sum, ring_fold
     from zkecdsa_tpu_torch.ops.msm_bucket import bucket_fold, bucket_sums
 
     return {fn.__name__: fn for fn in (
-        field_mul, ring_fold, ec_add, to_affine, straus_msm, comb_mixed,
+        field_mul, ring_fold, ec_add, window_table, to_affine, straus_msm, comb_mixed,
         shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
         bucket_sums, bucket_fold, msm_ladder, field_sum, comb8_bases, comb8_entries,
     )}
@@ -662,6 +670,31 @@ def _add_bound(ops, B: int):
     return _bound(mm * B, 3 * B * ops.NCOORD * NLIMBS * 4)
 
 
+def _table_bound(ops, B: int):
+    """Bound of ``window_table`` on B points: the least work of a table of
+    the multiples 0..15, 14 adds a point (entry 1 is P itself), as
+    :func:`_straus_bound` counts a term's table; B points read and 16 B
+    entries written."""
+    from zkecdsa_tpu_torch.ops.curve_ops import p256_ops
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+
+    mm = MM_WEIER_ADD if ops is p256_ops else MM_EDW_ADD
+    return _bound(mm * 14 * B, 17 * B * ops.NCOORD * NLIMBS * 4)
+
+
+def _ec_add_table(ops, P):
+    """The design ``window_table`` replaced, timed beside it: the table
+    as 15 ``ec_add`` launches, entry k = entry k-1 + P."""
+    import torch
+
+    from zkecdsa_tpu_torch.ops.curve_ops import ec_add
+
+    out = [ops.identity(P.shape[:-2], P.device)]
+    for _ in range(15):
+        out.append(ec_add(ops, out[-1], P))
+    return torch.stack(out, dim=-3)
+
+
 def check_prover_kernels(dev, dparams, rs, log) -> dict:
     """Phase 3, every kernel of one prove at N=256, ring 2^12, at the
     shapes the prover gives it.  Returns {name: [shape record, ...]}; the
@@ -709,12 +742,27 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     def u8(*shape, hi):
         return torch.from_numpy(rs.randint(0, hi, size=shape).astype(np.uint8)).to(dev)
 
-    # -- phase A: window tables of pk and R (15 ec_add each), D (2) --------
-    tab = window_table(ops, P)
-    _exact("window_table", [(tab, ops.table(P))])
-    t7 = tab[:, 7].contiguous()
-    case("ec_add", f"P-256 [{N}] (window tables, D)", lambda: ec_add(ops, t7, P),
-         lambda: ops.add(t7, P), _add_bound(ops, N), 20, 32)
+    # -- phase A: the window tables of pk and R, one window_table launch
+    #    each (the 15 ec_add launches a table they replaced timed beside
+    #    them), then comS1 = sR + Hc and D = Q + (-sR) in one [N, 2]
+    #    ec_add launch (the two [N] launches it merged timed beside it) ---
+    tab = case("window_table", f"P-256 [{N}] -> [{N}, 16, 3, 9] (phase A: the tables of pk and R)",
+               lambda: window_table(ops, P), lambda: ops.table(P), _table_bound(ops, N), 20, 2)
+    _exact("window_table vs the 15 ec_add launches", [(_ec_add_table(ops, P), tab)])
+    ms_loop = _cuda_ms(lambda: _ec_add_table(ops, P), 20)
+    shapes["window_table"][-1]["ms_15_ec_add"] = ms_loop
+    log(f"window_table [{N}]: {shapes['window_table'][-1]['ms']:.4f} ms in one launch; the 15 ec_add "
+        f"launches it replaced: {ms_loop:.4f} ms")
+    P2 = tab[:, [7, 3]].contiguous()
+    Q2 = torch.stack([P, ops.neg(tab[:, 5])], dim=1)
+    case("ec_add", f"P-256 [{N}, 2] (phase A: comS1 and D in one launch)", lambda: ec_add(ops, P2, Q2),
+         lambda: ops.add(P2, Q2), _add_bound(ops, 2 * N), 20, 1)
+    P2a, P2b, Q2a, Q2b = (t.contiguous() for t in (P2[:, 0], P2[:, 1], Q2[:, 0], Q2[:, 1]))
+    _exact("ec_add [N, 2] vs two [N] launches",
+           [(torch.stack([ec_add(ops, P2a, Q2a), ec_add(ops, P2b, Q2b)], dim=1), ec_add(ops, P2, Q2))])
+    ms_apart = _cuda_ms(lambda: (ec_add(ops, P2a, Q2a), ec_add(ops, P2b, Q2b)), 20)
+    shapes["ec_add"][-1]["ms_two_launches"] = ms_apart
+    log(f"ec_add [{N}, 2]: {shapes['ec_add'][-1]['ms']:.4f} ms; as two [{N}] launches {ms_apart:.4f} ms")
 
     # -- shamir: the [N] call (shared G table, per-row tables: R = u1*G +
     #    u2*PK) and the [N, 2] call (per-row tables and the shared G table
@@ -1281,6 +1329,53 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the trace of one prove
+# ---------------------------------------------------------------------------
+
+TRACED = ("ec_add", "window_table", "comb4_entries")  # kernels whose launches are listed
+
+
+def _trace_prove(prove, check, shapes, path, log) -> dict:
+    """One prove under ``utils.profiling.trace`` (torch.profiler, CPU and
+    CUDA activity; the Chrome trace in ``build/trace/``): the device's
+    busy share of the prove's wall; each kernel of ``path``'s device
+    time in the trace beside phase 3's CUDA-event time for one prove (ms
+    x launches a prove, summed over the shapes); and the device time of
+    each launch of the ``TRACED`` kernels, in order."""
+    import torch
+
+    from zkecdsa_tpu_torch.utils.profiling import device_time, trace
+
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace")
+    with trace(logdir) as tr:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prove(None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(out)
+    busy_us, kernels = device_time(tr.path)
+    if not kernels:
+        log(f"trace: one prove {wall:.3f} s; the trace holds no device kernel: device-busy share not measured")
+        return dict(wall_s=wall, busy_ms=None, busy_share=None)
+    launches = {k: [us / 1e3 for _, name, us in kernels if f"{k}_kernel" in name] for k in path}
+    trace_ms = {k: sum(v) for k, v in launches.items()}
+    event_ms = {k: sum(r["ms"] * r["launches_per_prove"] / r["launches_per_call"] for r in shapes[k])
+                for k in path}
+    share = busy_us / 1e6 / wall
+    all_ms = sum(us for _, _, us in kernels) / 1e3
+    log(f"trace: one prove {wall:.3f} s under the profiler; the device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * share:.3f}% of the wall); kernels {all_ms:.3f} ms, the port's {sum(trace_ms.values()):.3f} "
+        f"ms (phase 3's events a prove {sum(event_ms.values()):.3f} ms) ({tr.path})")
+    for k in path:
+        log(f"trace: {k} {trace_ms[k]:.4f} ms in {len(launches[k])} launches, phase 3's events a prove "
+            f"{event_ms[k]:.4f} ms" + (f"; each launch {[round(x, 4) for x in launches[k]]} ms"
+                                        if k in TRACED else ""))
+    return dict(wall_s=wall, busy_ms=busy_us / 1e3, busy_share=share, kernel_ms=all_ms,
+                trace_ms=trace_ms, event_ms=event_ms, launches_ms={k: launches[k] for k in TRACED})
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1385,7 +1480,7 @@ def main() -> int:
 
         counters = _kernel_fns()
         setup_path = ("comb8_bases", "comb8_entries")
-        prove_path = ("ring_fold", "ec_add", "to_affine", "comb_mixed", "shamir",
+        prove_path = ("ring_fold", "ec_add", "window_table", "to_affine", "comb_mixed", "shamir",
                       "comb4_bases", "comb4_entries", "mul_comb4", "comb_weier", "chord")
         verify_path = ("ring_fold", "ec_add", "to_affine", "straus_msm", "comb_mixed")
         bucket_path = verify_path + ("bucket_sums", "bucket_fold")  # path A
@@ -1498,6 +1593,7 @@ def main() -> int:
 
         if launches_prove["field_mul"] != 0 or launches_prove["ring_fold"] != 1:
             raise AssertionError(f"a prove should make 1 ring_fold and 0 field_mul launches: {launches_prove}")
+        traced = _trace_prove(prove, check_proofs, shapes, prove_path, log)
 
         # -- phase 4b: the verifier on the N distinct proofs ------------------
         bv = BatchVerifier(params, dev)
@@ -1717,6 +1813,7 @@ def main() -> int:
         "field_mul": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/ops/pallas_field.py:183"),
         "ring_fold": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/protocol/batch_gk.py:66"),
         "ec_add": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/pallas_field.py:214"),
+        "window_table": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:133"),
         "to_affine": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:459"),
         "straus_msm": ("zkecdsa_tpu_torch/csrc/msm.cu", "zkecdsa_tpu/ops/curve_ops.py:393"),
         "comb_mixed": ("zkecdsa_tpu_torch/csrc/comb.cu", "zkecdsa_tpu/ops/curve_ops.py:731"),
@@ -1772,7 +1869,7 @@ def main() -> int:
         "bucket_verify_s": bucket_wall, "bucket_verify_proofs_per_s": N / bucket_wall,
         "scalar_verify_s_per_proof": dev_med, "host_scalar_verify_s_per_proof": host_med,
         "crossover": crossover,
-        "prove_stages": ptimer.stages, "verify_stages": vtimer.stages,
+        "prove_stages": ptimer.stages, "verify_stages": vtimer.stages, "prove_trace": traced,
         "bucket_verify_stages": btimer.stages,
         "mesh": {run: [{k: v for k, v in r.items() if not k.startswith("launches")} for r in reports]
                  for run, reports in mesh_runs.items()},

@@ -268,6 +268,24 @@ def _affine(jops, tops, ref, got):
     assert inf.tolist() == np.asarray(jinf).tolist()
 
 
+@pytest.mark.parametrize("name", list(CURVES))
+def test_window_table_identity_point(name):
+    """window_table (CPU: ops.table) against the reference's table on
+    random points with the identity among them: the same integers, and 16
+    identities for the identity."""
+    tops, jops, g = CURVES[name]
+    rs = np.random.RandomState(62 + len(name))
+    pts = _points(g, rs, 2) + [g.identity()]
+    tab = tcurve.window_table(tops, tops.pack_points(pts))
+    jtab = jops.table(jnp.asarray(jops.pack_points(pts)))
+    assert _tcoords(tops, tab.reshape(-1, tops.NCOORD, 9)) == _coords(
+        jops, jtab.reshape(-1, jops.NCOORD, jtab.shape[-1])
+    )
+    assert tops.is_identity(tab[2]).all()
+    for k, e in enumerate(tops.unpack_points(tab[0])):
+        assert e.eq(pts[0].mul(g.new_scalar(k)) if k else g.identity())
+
+
 def test_shamir_vs_double_mul_tables(params):
     """window_table + shamir (CPU: the plain versions) against the
     reference's table + double_mul_tables: the same operations in the same

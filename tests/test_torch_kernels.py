@@ -417,6 +417,49 @@ def test_point_kernels_vs_plain(ops, g, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 257])
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_window_table_kernel_vs_plain(ops, g, B, cuda):
+    """One window_table launch against ops.table, bit for bit: one point,
+    a block of 8 teams minus one, a block, a block plus one and 32 blocks
+    plus one, with the identity as an input point where there are two or
+    more (its table is 16 identities)."""
+    rs = np.random.RandomState(110 + B)
+    pts = [g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(B)]
+    if B > 1:
+        pts[B // 2] = g.identity()
+    P = ops.pack_points(pts, cuda)
+    before = tcurve.window_table.launches
+    tab = tcurve.window_table(ops, P)
+    assert tcurve.window_table.launches == before + 1
+    assert torch.equal(tab, ops.table(P))
+    assert ops.is_identity(tab[B // 2]).all() == (B > 1)
+    # batch dims beyond one
+    assert torch.equal(tcurve.window_table(ops, P[None]), tab[None])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ec_add_merged_rows(cuda):
+    """Phase A's comS1 = sR + Hc and D = Q + (-sR) as one [N, 2] ec_add
+    launch equal the two [N] launches it replaced and the plain version."""
+    rs = np.random.RandomState(111)
+    ops, g, N = tcurve.p256_ops, p256, 13
+    sR, Hc, Q = (
+        ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(N)], cuda)
+        for _ in range(3)
+    )
+    Q[0] = sR[0]  # D = the identity
+    P2, Q2 = torch.stack([sR, Q], dim=1), torch.stack([Hc, ops.neg(sR)], dim=1)
+    cd = tcurve.ec_add(ops, P2, Q2)
+    assert torch.equal(cd[:, 0], tcurve.ec_add(ops, sR, Hc))
+    assert torch.equal(cd[:, 1], tcurve.ec_add(ops, Q, ops.neg(sR)))
+    assert torch.equal(cd, ops.add(P2, Q2))
+    assert bool(ops.is_identity(cd[0, 1]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_comb_mixed_kernel_vs_plain(tables, cuda):
     tabs = tables.to(cuda)
     d8 = torch.from_numpy(np.random.RandomState(71).randint(0, 256, size=(64, 64)).astype(np.uint8))
@@ -604,14 +647,25 @@ def test_comb4_kernels_vs_plain(lanes, B, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [1, 9, 33])
+@pytest.mark.parametrize("R", [1, 9, 33, 256])
 def test_comb4_bases_ragged(R, cuda):
     """A team per base, 8 to a block: one base, a block plus one, four
-    blocks plus one, bit for bit against the plain version."""
+    blocks plus one and the prover's 256, bit for bit against the plain
+    version; then comb4_entries on those bases (a team per (base,
+    position) row, 8 rows to a block) in both forms, with an identity base
+    among them where there are two or more."""
     rs = np.random.RandomState(100 + R)
     ops, g = tcurve.p256_ops, p256
-    P = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(R)], cuda)
-    assert torch.equal(tcurve.comb4_bases(P), ops.comb4_bases(P))
+    pts = [g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(R)]
+    if R > 1:
+        pts[R // 2] = g.identity()
+    P = ops.pack_points(pts, cuda)
+    bases = tcurve.comb4_bases(P)
+    assert torch.equal(bases, ops.comb4_bases(P))
+    plain = ops.comb4_entries(bases)
+    assert torch.equal(ops.f.from_mont(tcurve.comb4_entries(bases)), plain)
+    assert torch.equal(tcurve.comb4_entries(bases, canon=True), plain)
+    assert ops.is_identity(plain[R // 2]).all() == (R > 1)
     torch.cuda.synchronize()
 
 

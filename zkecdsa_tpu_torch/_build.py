@@ -49,6 +49,7 @@ _SIGNATURES = {
     "zk_field_sum": [_I, _L, _L, _P, _P, _P],
     "zk_ring_fold": [_I, _L, _P, _P, _P, _P, _P],
     "zk_ec_add": [_I, _L, _P, _P, _P, _P],
+    "zk_window_table": [_I, _L, _P, _P, _P],
     "zk_to_affine": [_I, _L, _L, _P, _P, _P, _P, _P],
     "zk_to_affine_resident_warps": [_I, _P],
     "zk_straus_msm": [_I, _L, _L, _I, _I, _I, _P, _P, _P, _P, _P],

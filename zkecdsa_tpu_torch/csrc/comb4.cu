@@ -14,12 +14,16 @@
 // coordinate q of each position base.
 //
 // zk_comb4_entries: position bases [R, 64, 3, 9] -> tables [R, 64, 16, 3,
-// 9]: one thread per (base, position) builds the 16 entries by doubling the
-// entry set: m_k = dbl(entry k/2), entries k..2k-1 = entries 0..k-1 + m_k.
-// The prove's call writes them in Montgomery form (x * 2^288 mod p), the
-// form zk_mul_comb4 reads, so neither kernel converts an entry; the
-// canonical form (48 more products a (base, position)) is a flag for the
-// tests and chip_smoke.py.
+// 9]: a team of four lanes per (base, position) row builds the 16 entries
+// by doubling the entry set: m_k = dbl(entry k/2), entries k..2k-1 =
+// entries 0..k-1 + m_k, 3 doublings and 14 adds in 82 rounds of one
+// product where one thread would take 240 products, 8 rows to a one-warp
+// block.  The entries of a row are kept in shared memory (8 rows x 16 x
+// 108 B = 13.8 KB a block), not on the stack, as each is made; the team
+// reads back the ones the next level adds.  The prove's call writes them
+// in Montgomery form (x * 2^288 mod p), the form zk_mul_comb4 reads, so
+// neither kernel converts an entry; the canonical form (one more product
+// a coordinate, one round) is a flag for the tests and chip_smoke.py.
 //
 // zk_mul_comb4: Montgomery tables [R, 64, 16, 3, 9] and MSB-first nibbles
 // [R, S, 64] (one a byte) -> [R, S, 3, 9] canonical: 64 gather-adds from
@@ -34,7 +38,11 @@
 // doublings per base in one dependent chain (latency-bound: 256 chains at
 // N=256 on a card of 132 SMs, so the team cuts the chain, 1,008 rounds of
 // one product instead of 3,276 products); the entries are 3 doublings and
-// 14 adds per (base, position); the multiply is 64 adds per scalar
+// 14 adds per (base, position), 16,384 rows at N=256: one thread a row
+// would be about one warp a scheduler, a chain with little to hide it;
+// the team both cuts the chain and gives four times the warps
+// (tools/torch_comb4_entries_probe.py times both, and four lanes a row
+// each running whole adds of a level); the multiply is 64 adds per scalar
 // reading 64 scattered 108-byte entries of a 110 KB per-base table, which
 // L2 holds.  At N=256 its 20,480 scalars leave the card under-filled, so
 // a scalar's chain of 64 adds sets the time and the team takes it: 5
@@ -62,32 +70,48 @@ __global__ void __launch_bounds__(BASES * ZK_TEAM) comb4_bases_kernel(
     team_comb_bases<CID, 4, true>(bases + r * 64 * PT, P + r * PT, 64, live);
 }
 
-// an entry in Montgomery form (MONT) or canonical standard form
+constexpr int ROWS = 8;  // (base, position) rows (teams) per one-warp entries block
+
+// Entry P of a team's row: lane q (q < 3) keeps coordinate q in the row's
+// shared entries `e` (Montgomery form) and writes it to `g`, in Montgomery
+// form (MONT) or canonical standard form, if `live`; the warp then syncs,
+// so every lane may read the entry back.
 template <bool MONT>
-__device__ __forceinline__ void entry_store(uint32_t* g, const Pt<CID>& P) {
-    if constexpr (MONT) {
-        pt_store_raw<CID>(g, P);
-    } else {
-        pt_store<CID>(g, P);
-    }
+__device__ __forceinline__ void entry_keep(uint32_t* e, uint32_t* g, const Pt<CID>& P, bool live) {
+    const int q = team_lane();
+    Fe c;
+    team_coord<CID>(c, P);
+    if (q < 3) fe_store(e + q * ZK_NL, c);
+    if constexpr (!MONT) fe_from_mont(c, c, curve_mod<CID>());
+    if (live && q < 3) fe_store(g + q * ZK_NL, c);
+    __syncwarp();
 }
 
 template <bool MONT>
-__global__ void comb4_entries_kernel(long long RJ, const uint32_t* __restrict__ bases,
-                                     uint32_t* __restrict__ tab) {
-    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= RJ) return;
-    uint32_t* t = tab + idx * 16 * PT;  // (base, position) row of 16 entries
-    Pt<CID> E[16], m;
-    pt_identity<CID>(E[0]);
-    entry_store<MONT>(t, E[0]);
-    pt_load<CID>(E[1], bases + idx * PT);
-    entry_store<MONT>(t + PT, E[1]);
+__global__ void __launch_bounds__(ROWS * ZK_TEAM) comb4_entries_kernel(
+    long long RJ, const uint32_t* __restrict__ bases, uint32_t* __restrict__ tab) {
+    __shared__ uint32_t ent[ROWS * 16 * PT];
+    const int team = threadIdx.x / ZK_TEAM;
+    const long long row = (long long)blockIdx.x * ROWS + team;
+    // a team past RJ runs row RJ-1 and stores nothing
+    const bool live = row < RJ;
+    const long long idx = live ? row : RJ - 1;
+    uint32_t* t = tab + idx * 16 * PT;  // the (base, position) row of 16 entries
+    uint32_t* e = ent + team * 16 * PT;
+    Pt<CID> a, m;
+    pt_identity<CID>(a);
+    entry_keep<MONT>(e, t, a, live);
+    team_to_mont<CID>(a, bases + idx * PT);
+    entry_keep<MONT>(e + PT, t + PT, a, live);
+#pragma unroll 1
     for (int k = 2; k < 16; k *= 2) {
-        pt_dbl<CID>(m, E[k / 2]);
+        pt_load_raw<CID>(a, e + (k / 2) * PT);
+        team_dbl<CID>(m, a);
+#pragma unroll 1
         for (int s = 0; s < k; ++s) {
-            pt_add<CID>(E[k + s], E[s], m);
-            entry_store<MONT>(t + (k + s) * PT, E[k + s]);
+            pt_load_raw<CID>(a, e + s * PT);
+            team_add<CID>(a, a, m);
+            entry_keep<MONT>(e + (k + s) * PT, t + (k + s) * PT, a, live);
         }
     }
 }
@@ -121,12 +145,13 @@ extern "C" int zk_comb4_bases(long long R, const void* P, void* bases, void* str
 // mont != 0: the entries in Montgomery form (mul_comb4's), else canonical.
 extern "C" int zk_comb4_entries(long long R, int mont, const void* bases, void* tab, void* stream) {
     if (R == 0) return 0;
-    const unsigned blocks = grid_for(R * 64, 64);
+    const unsigned blocks = grid_for(R * 64, ROWS);
     cudaStream_t st = (cudaStream_t)stream;
+    const uint32_t* b = (const uint32_t*)bases;
     if (mont) {
-        comb4_entries_kernel<true><<<blocks, 64, 0, st>>>(R * 64, (const uint32_t*)bases, (uint32_t*)tab);
+        comb4_entries_kernel<true><<<blocks, ROWS * ZK_TEAM, 0, st>>>(R * 64, b, (uint32_t*)tab);
     } else {
-        comb4_entries_kernel<false><<<blocks, 64, 0, st>>>(R * 64, (const uint32_t*)bases, (uint32_t*)tab);
+        comb4_entries_kernel<false><<<blocks, ROWS * ZK_TEAM, 0, st>>>(R * 64, b, (uint32_t*)tab);
     }
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // ec_add: complete point addition over [B, C, 9] canonical projective
-// coordinates, one thread per point pair; and its sibling to_affine.
+// coordinates, one thread per point pair; and its siblings window_table
+// and to_affine.
 //
 // ec_add replaces zkecdsa_tpu/ops/pallas_field.py:214 pallas_ec_add and the
 // generic WeierOps.add / EdwardsOps.add (zkecdsa_tpu/ops/curve_ops.py:502,
@@ -7,6 +8,19 @@
 // Montgomery products plus C to-Montgomery and C from-Montgomery passes per
 // point against 2*C*36 bytes read and C*36 written.  Every intermediate
 // stays in registers.
+//
+// window_table replaces zkecdsa_tpu/ops/curve_ops.py:133 table (a
+// lax.scan of 15 adds) in one launch, where 15 ec_add launches would each
+// pay a launch for one add: points [B, C, 9] -> tables [B, 16, C, 9],
+// entry k = entry k-1 + P from the identity, the plain version's order
+// (so entry 1 is identity + P as the formula gives it, and the integers
+// are the plain version's).  What
+// bounds it: one point's chain of 15 dependent adds, since the prover's
+// calls have 256 points, far too few to fill the card.  A team of four
+// lanes (curve.cuh) runs each point's adds, 5 rounds of one product an add
+// instead of 14 products, 8 points to a one-warp block; P goes to
+// Montgomery form once, and each entry is stored as soon as it is made
+// (lane q, coordinate q), so a team holds two points and no table.
 //
 // to_affine replaces CurveOps.to_affine (zkecdsa_tpu/ops/curve_ops.py:459)
 // plus F32Field.canon: canonical x, y and an infinity flag.  Like the
@@ -40,6 +54,7 @@
 #include "curve.cuh"
 
 #define AFFINE_THREADS 128
+#define WTAB_POINTS 8  // points (teams) per one-warp window_table block
 
 template <int CID>
 __global__ void ec_add_kernel(long long B, const uint32_t* __restrict__ P,
@@ -52,6 +67,26 @@ __global__ void ec_add_kernel(long long B, const uint32_t* __restrict__ P,
     pt_load<CID>(b, Q + i * C * ZK_NL);
     pt_add<CID>(r, a, b);
     pt_store<CID>(out + i * C * ZK_NL, r);
+}
+
+template <int CID>
+__global__ void __launch_bounds__(WTAB_POINTS * ZK_TEAM) window_table_kernel(
+    long long B, const uint32_t* __restrict__ P, uint32_t* __restrict__ tab) {
+    constexpr int PT = CurveT<CID>::C * ZK_NL;
+    const long long i0 = (long long)blockIdx.x * WTAB_POINTS + threadIdx.x / ZK_TEAM;
+    // a team past B runs point B-1 and stores nothing
+    const bool live = i0 < B;
+    const long long i = live ? i0 : B - 1;
+    uint32_t* t = tab + i * 16 * PT;
+    Pt<CID> p, e;
+    team_to_mont<CID>(p, P + i * PT);
+    pt_identity<CID>(e);
+    team_store<CID>(t, e, live);
+#pragma unroll 1
+    for (int k = 1; k < 16; ++k) {
+        team_add<CID>(e, e, p);
+        team_store<CID>(t + k * PT, e, live);
+    }
 }
 
 // The Z of point i is read raw, as a Montgomery value u_i = Z_i R^-1: no
@@ -139,6 +174,17 @@ extern "C" int zk_ec_add(int curve, long long B, const void* P, const void* Q, v
         constexpr int CID = decltype(c)::value;
         ec_add_kernel<CID><<<grid_for(B, threads), threads, 0, st>>>(
             B, (const uint32_t*)P, (const uint32_t*)Q, (uint32_t*)out);
+    });
+    return bad ? bad : (int)cudaGetLastError();
+}
+
+extern "C" int zk_window_table(int curve, long long B, const void* P, void* tab, void* stream) {
+    if (B == 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int bad = zk_dispatch_curve(curve, [&](auto c) {
+        constexpr int CID = decltype(c)::value;
+        window_table_kernel<CID><<<grid_for(B, WTAB_POINTS), WTAB_POINTS * ZK_TEAM, 0, st>>>(
+            B, (const uint32_t*)P, (uint32_t*)tab);
     });
     return bad ? bad : (int)cudaGetLastError();
 }

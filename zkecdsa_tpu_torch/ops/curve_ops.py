@@ -13,12 +13,13 @@ coordinates wherever they take the same sequence of point operations.
 Plain versions (``CurveOps`` methods) run on any device in plain PyTorch;
 inside a method the coordinates stay in the field's redundant working form
 and are canonicalised once at the end.  The kernel wrappers
-(:func:`ec_add`, :func:`to_affine`, :func:`straus_msm`,
-:func:`comb_mixed`, the prover's P-256 kernels :func:`shamir`,
-:func:`comb4_bases`, :func:`comb4_entries`, :func:`mul_comb4`,
-:func:`comb_weier`, :func:`msm`, :func:`msm_ladder`, and the parameter
-set-up's :func:`comb8_bases`, :func:`comb8_entries`) take the plain version
-for a CPU tensor and launch their kernel for any other, or raise.
+(:func:`ec_add`, :func:`window_table`, :func:`to_affine`,
+:func:`straus_msm`, :func:`comb_mixed`, the prover's P-256 kernels
+:func:`shamir`, :func:`comb4_bases`, :func:`comb4_entries`,
+:func:`mul_comb4`, :func:`comb_weier`, :func:`msm`, :func:`msm_ladder`,
+and the parameter set-up's :func:`comb8_bases`, :func:`comb8_entries`)
+take the plain version for a CPU tensor and launch their kernel for any
+other, or raise.
 The bucket MSM's kernels are in ``ops/msm_bucket.py``.
 """
 
@@ -1014,13 +1015,27 @@ comb_mixed.launches = 0
 
 
 def window_table(ops: CurveOps, P: torch.Tensor) -> torch.Tensor:
-    """[..., 16, C, 9] window table of the multiples 0..15 of P: entry k =
-    entry k-1 + P from the identity (the reference's ``table``,
-    ``curve_ops.py:133``), through :func:`ec_add`: 15 launches."""
-    out = [ops.identity(P.shape[:-2], P.device)]
-    for _ in range(TABLE - 1):
-        out.append(ec_add(ops, out[-1], P))
-    return torch.stack(out, dim=-3)
+    """[..., C, 9] canonical points -> [..., 16, C, 9] window tables of
+    their multiples 0..15: entry k = entry k-1 + P from the identity, the
+    plain version's order, so the projective coordinates are the same
+    integers.  Kernel ``csrc/ec.cu`` (replaces
+    ``zkecdsa_tpu/ops/curve_ops.py:133 table``), one launch a call: a
+    team of four lanes a point runs its chain of 15 adds.  A CPU tensor
+    takes ``ops.table``."""
+    if P.device.type == "cpu":
+        return ops.table(P)
+    lib = _build.load()
+    _check_points(ops, P)
+    P = P.contiguous()
+    out = torch.empty(P.shape[:-2] + (TABLE,) + P.shape[-2:], dtype=torch.int32, device=P.device)
+    B = P.shape[:-2].numel()
+    code = lib.zk_window_table(ops.curve_id, B, P.data_ptr(), out.data_ptr(), _stream(P))
+    _build.check(code, "zk_window_table")
+    window_table.launches += 1
+    return out
+
+
+window_table.launches = 0
 
 
 _P256_TABLE = (TABLE, 3, NLIMBS)  # one P-256 window table
@@ -1110,9 +1125,10 @@ comb4_bases.launches = 0
 
 def comb4_entries(bases: torch.Tensor, canon: bool = False) -> torch.Tensor:
     """The comb tables from their canonical position bases: [..., 64, 3,
-    9] -> [..., 64, 16, 3, 9].  Kernel ``csrc/comb4.cu``: one thread per
-    (base, position) builds the 16 entries in the plain version's order
-    and writes them in Montgomery form (x * 2^288 mod p), the form
+    9] -> [..., 64, 16, 3, 9].  Kernel ``csrc/comb4.cu``: a team of four
+    lanes per (base, position) builds the 16 entries in the plain
+    version's order, keeping them in shared memory, and writes them in
+    Montgomery form (x * 2^288 mod p), the form
     :func:`mul_comb4`'s kernel reads, or canonical if ``canon`` (tests and
     chip_smoke.py).  A CPU tensor takes ``p256_ops.comb4_entries``,
     canonical."""

@@ -274,11 +274,11 @@ def phase_a(tabs, pk, u1, u2, z1, s1, com_r, pkx_v, pkx_r, pky_v, pky_r,
     # comS1 + com_r*h = Q - s1*R: the per-instance constant of the
     # even-round relation T1 = z*R + Q = T + D (see phase_b_flat).  One
     # comb_weier call makes the rounds' r_i * h and com_r * h: [N, 81] rows,
-    # com_r's as the 81st of each instance
+    # com_r's as the 81st of each instance; comS1 and D are one [N, 2] add
     H = comb_weier(tabs["comb_h_n8"], bytes_le(torch.cat([r_rnd, com_r[:, None]], dim=1)))
     Hr, Hc = H[:, :SECPARAM], H[:, SECPARAM]
-    comS1 = ec_add(p256_ops, sR, Hc)
-    D = ec_add(p256_ops, Q, p256_ops.neg(sR))
+    cd = ec_add(p256_ops, torch.stack([sR, Q], dim=1), torch.stack([Hc, p256_ops.neg(sR)], dim=1))
+    comS1, D = cd[:, 0], cd[:, 1]
     # 80 rounds: T_i = alpha_i * R from a per-instance comb table (on the
     # card in Montgomery form, the form mul_comb4 reads), and A_i = T_i +
     # r_i * h (exp.ts:144-150)

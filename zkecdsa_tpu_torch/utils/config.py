@@ -8,6 +8,8 @@ Every field here is read by the code:
 * ``verify_rounds`` - the top-level verifier's spot-check count
   (zkpAttestList.ts:177 hardcodes 20; read by both the scalar verifier and
   ``protocol.batch_verify``).
+* ``profile_dir`` - when set, ``utils.profiling.trace`` writes a
+  ``torch.profiler`` Chrome trace there.
 * ``pippenger_min_t`` - term-count threshold from which the batch
   verifier's per-row identity MSMs take the bucket (Pippenger) kernels
   instead of the Straus kernel (``protocol.batch_verify``); 0 disables the
@@ -17,7 +19,7 @@ Every field here is read by the code:
   respectively; see the dataclass comments.
 
 Env overrides: ``ZKECDSA_<FIELD>`` (e.g. ZKECDSA_VERIFY_ROUNDS=80 makes the
-verifier check every round).
+verifier check every round; ZKECDSA_PROFILE_DIR=build/trace).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ __all__ = ["Config", "get_config", "set_config"]
 class Config:
     sec_level: int = 80  # prover rounds (zkpAttestList.ts:88)
     verify_rounds: int = 20  # top-level verifier spot-checks (":177")
+    profile_dir: str | None = None  # torch.profiler trace output
     pippenger_min_t: int = 0  # MSM bucket-kernel threshold (0 = never)
     # Hardened security modes (both default OFF for wire compatibility
     # with the reference's flagged-insecure choices):
@@ -48,13 +51,15 @@ class Config:
 
     @classmethod
     def from_env(cls) -> "Config":
-        """Defaults overridden by ``ZKECDSA_<FIELD>`` env vars (all fields
-        are ints)."""
+        """Defaults overridden by ``ZKECDSA_<FIELD>`` env vars; fields with
+        int defaults are parsed as int, everything else taken as string."""
         cfg = cls()
         for field in dataclasses.fields(cls):
             env = os.environ.get("ZKECDSA_" + field.name.upper())
-            if env is not None:
-                setattr(cfg, field.name, int(env))
+            if env is None:
+                continue
+            is_int = isinstance(getattr(cfg, field.name), int)
+            setattr(cfg, field.name, int(env) if is_int else env)
         return cfg
 
 
