@@ -17,12 +17,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    its schedule-independent bound and its launches per path; ``shamir``'s
    two calls apart; ``window_table`` beside the 15 ``ec_add`` launches a
    table it replaced, and phase A's one [N, 2] ``ec_add`` call beside
-   the two [N] launches it merged; ``comb_mixed`` at its four calls,
-   ``mul_comb4`` at its one and ``comb_weier`` at its one ([N, 81]) and
+   the two [N] launches it merged; ``ec_add`` (a team of four lanes a
+   pair) at every call of a prove and a verify beside the one-thread
+   kernel it replaced (``tools/torch_ec_add_sweep.py``, whose library is
+   built beside the kernels too); ``tree_sum`` at the
+   verifier's two trees beside the ``ec_add`` level loops it replaced;
+   ``chord`` (T1's affine pass and the chord pass in one launch) beside
+   the pair it replaced (``to_affine`` [K] and the old chord kernel, from
+   ``tools/torch_chord_probe.py``, whose library is built beside the
+   kernels), with its zero rows against Python integers; ``comb_mixed``
+   at its four calls, ``mul_comb4`` at its one and ``comb_weier`` at its
+   one ([N, 81]) and
    at the two calls it merged, each under ``comb_plan``'s geometry and
    under the other one;
    ``comb4_entries`` in Montgomery form (the form ``mul_comb4`` reads)
-   beside its canonical option; ``to_affine`` at its seven calls
+   beside its canonical option; ``to_affine`` at its six calls
    under ``affine_plan``'s group and at group 1; ``ring_fold`` at its two
    calls, also against Python integers and against the n ``field_mul``
    launches it replaced, timed too; ``field_mul``, off the main path, at
@@ -30,9 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    function on the call's data (a batch of inversions as one batch
    inversion), and the script raises if a bound it tightened grew; the
    launches per prove at the checked shapes must add up to the counts of
-   phase 4a, and those per verify of ``straus_msm``, ``to_affine`` and
-   ``ring_fold`` to phase 4b's (a prove and a verify make one
-   ``ring_fold`` and no ``field_mul`` launch); the parameter
+   phase 4a, and those per verify of ``straus_msm``, ``to_affine``,
+   ``ring_fold``, ``ec_add`` and ``tree_sum`` to phase 4b's (a prove and
+   a verify make one ``ring_fold`` and no ``field_mul`` launch); the
+   parameter
    set-up's kernels (``comb8_bases``, ``comb8_entries``) come first, at
    its shapes (the P-256 h, R = 1; the Tom-256 g and h, R = 2), held
    against their plain versions and against the host oracle (the
@@ -48,16 +58,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    prover ``prove_signature_list`` run in worker processes meanwhile; the
    launch counts are read over the first timed rep; then one more prove
    under ``torch.profiler`` (``utils.profiling.trace``): the device's busy
-   share of its wall, and the device time of ``ec_add``,
-   ``window_table`` and ``comb4_entries`` in the trace beside phase 3's
-   CUDA-event times;
+   share of its wall, and the device time of each launch of ``ec_add``,
+   ``tree_sum``, ``window_table``, ``comb4_entries`` and ``chord`` in the
+   trace beside phase 3's CUDA-event times;
    phase 3 also holds the MSM backends' kernels (``bucket_sums``,
    ``bucket_fold``, ``msm_ladder``) against their plain versions, and
    ``straus_msm`` against them (the Straus-bucket crossover);
 4b. the verifier: ``BatchVerifier.verify`` on those 256 proofs, one
-   warm-up and three timed reps, launch counts over the first; then one
-   proof's GK response is tampered: exactly that position must fail (the
-   per-row attribution path);
+   warm-up and three timed reps, launch counts over the first; one more
+   verify traced as the prove was; then one proof's GK response is
+   tampered: exactly that position must fail (the per-row attribution
+   path);
 4c. path A: the same verify and tampered batch with
    ``Config.pippenger_min_t = 32``: the per-row MSMs take the bucket
    kernels (P-256 on the honest batch, both curves on the tampered one);
@@ -259,13 +270,15 @@ def _kernel_fns() -> dict:
         shamir,
         straus_msm,
         to_affine,
+        tree_sum,
         window_table,
     )
-    from zkecdsa_tpu_torch.ops.field import chord, field_mul, field_sum, ring_fold
+    from zkecdsa_tpu_torch.ops.curve_ops import chord
+    from zkecdsa_tpu_torch.ops.field import field_mul, field_sum, ring_fold
     from zkecdsa_tpu_torch.ops.msm_bucket import bucket_fold, bucket_sums
 
     return {fn.__name__: fn for fn in (
-        field_mul, ring_fold, ec_add, window_table, to_affine, straus_msm, comb_mixed,
+        field_mul, ring_fold, ec_add, tree_sum, window_table, to_affine, straus_msm, comb_mixed,
         shamir, comb4_bases, comb4_entries, mul_comb4, comb_weier, chord,
         bucket_sums, bucket_fold, msm_ladder, field_sum, comb8_bases, comb8_entries,
     )}
@@ -461,17 +474,22 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         ms = _cuda_ms(lambda: ec_add(ops, P, Q), 10)
         log(f"ec_add {g.name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
     # the verifier's shape: vphase T1 = T0 + Q over [N, S] P-256 points
-    P, Q = samples["p256"][0][: N * S], samples["p256"][1][: N * S]
-    got = ec_add(p256_ops, P, Q)
-    plain, plain_ms = _once_ms(lambda: p256_ops.add(P, Q))
-    err = _exact("ec_add[vphase]", [(got, plain)])
-    ms = _cuda_ms(lambda: ec_add(p256_ops, P, Q), 20)
-    bound, by = _bound(MM_WEIER_ADD * N * S, 3 * N * S * C_P * pb)
-    entries["ec_add"] = dict(
-        call=f"P-256 [{N}, {S}] (vphase T1 = T0 + Q)", launches_per_call=1, launches_per_prove=0,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-    )
-    log(f"ec_add p256 [{N},{S}]: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
+    P = samples["p256"][0][: N * S].reshape(N, S, C_P, NLIMBS)
+    Q = samples["p256"][1][: N * S].reshape(N, S, C_P, NLIMBS)
+    _, entries["ec_add"] = _ec_add_case(p256_ops, P, Q, f"P-256 [{N}, {S}] (vphase T1 = T0 + Q)", 20, log,
+                                        0, 1)
+
+    # -- tree_sum at the verifier's two trees: the combined Tom-256 MSM's
+    #    parts of each of its rows, then the sum of its rows ---------------
+    R, T = MSM
+    nparts = straus_plan(R, T, straus_teams(tom_ops, dev)).nparts
+    pts = samples["tomEdwards256"][1]
+    entries["tree_sum"] = [
+        _tree_case(tom_ops, pts[: nparts * R].reshape(nparts, R, 4, NLIMBS),
+                   f"Tom-256 [{nparts}, {R}] (verify: the combined MSM's parts a row)", 20, log,
+                   1 if nparts > 1 else 0)[1],
+        _tree_case(tom_ops, pts[: R], f"Tom-256 [{R}] (verify: the combined MSM's rows)", 20, log, 1)[1],
+    ]
 
     # -- to_affine: the verifier's [N, S, 2] batches on both curves -------
     for ops, name, what in ((p256_ops, "p256", "P-256"), (tom_ops, "tomEdwards256", "Tom-256")):
@@ -670,6 +688,62 @@ def _add_bound(ops, B: int):
     return _bound(mm * B, 3 * B * ops.NCOORD * NLIMBS * 4)
 
 
+def _ec_add_case(ops, P, Q, call, reps, log, per_prove, per_verify=0):
+    """``ec_add`` (a team of four lanes a pair) on one call's pairs, held
+    exactly against the plain version and timed, beside the one-thread
+    kernel it replaced (``tools/torch_ec_add_sweep.py``), held against it
+    and timed too."""
+    from tools.torch_ec_add_sweep import one_thread_ec_add
+    from zkecdsa_tpu_torch.ops.curve_ops import ec_add
+
+    B = P.shape[:-2].numel()
+    got, rec = _case("ec_add", call, lambda: ec_add(ops, P, Q), lambda: ops.add(P, Q), _add_bound(ops, B),
+                     reps, log, per_prove)
+    err = _exact(f"ec_add {call} vs one thread a pair", [(one_thread_ec_add(ops, P, Q), got)])
+    ms_thread = _cuda_ms(lambda: one_thread_ec_add(ops, P, Q), reps)
+    rec.update(launches_per_verify=per_verify, max_abs_err=max(rec["max_abs_err"], err),
+               ms_one_thread=ms_thread)
+    log(f"ec_add {call}: a team a pair {rec['ms']:.4f} ms; one thread a pair (the kernel it replaced) "
+        f"{ms_thread:.4f} ms, exact; bound {rec['bound_ms']:.5f} ms")
+    return got, rec
+
+
+def _ec_add_levels(ops, P):
+    """The design ``tree_sum`` replaced, timed beside it: the plain
+    tree's levels as one ``ec_add`` launch each."""
+    import torch
+
+    from zkecdsa_tpu_torch.ops.curve_ops import ec_add
+
+    while P.shape[0] > 1:
+        h = P.shape[0] // 2
+        P = torch.cat([ec_add(ops, P[:h], P[h : 2 * h]), P[2 * h :]], dim=0)
+    return P[0]
+
+
+def _tree_case(ops, P, call, reps, log, per_verify):
+    """``tree_sum`` on [n, M] points, held exactly against the plain
+    version and against the ``ec_add`` level loop it replaced, both
+    timed.  The bound counts the tree's n - 1 adds a column, the points
+    read once and the M sums written."""
+    from zkecdsa_tpu_torch.ops.curve_ops import p256_ops, tree_sum
+    from zkecdsa_tpu_torch.ops.field import NLIMBS
+
+    n, M = P.shape[0], P.shape[1:-2].numel()
+    mm = MM_WEIER_ADD if ops is p256_ops else MM_EDW_ADD
+    bound = _bound(mm * (n - 1) * M, (n * M + M) * ops.NCOORD * NLIMBS * 4)
+    got, rec = _case("tree_sum", call, lambda: tree_sum(ops, P), lambda: ops.sum_reduce(P), bound, reps,
+                     log, 0)
+    err = _exact(f"tree_sum {call} vs the ec_add levels", [(_ec_add_levels(ops, P), got)])
+    ms_levels = _cuda_ms(lambda: _ec_add_levels(ops, P), reps)
+    levels = (n - 1).bit_length()
+    rec.update(launches_per_verify=per_verify, max_abs_err=max(rec["max_abs_err"], err),
+               ms_ec_add_levels=ms_levels, ec_add_levels=levels)
+    log(f"tree_sum {call}: {rec['ms']:.4f} ms in one launch; the {levels} ec_add levels it replaced: "
+        f"{ms_levels:.4f} ms; bound {bound[0]:.5f} ms")
+    return got, rec
+
+
 def _table_bound(ops, B: int):
     """Bound of ``window_table`` on B points: the least work of a table of
     the multiples 0..15, 14 adds a point (entry 1 is P itself), as
@@ -709,6 +783,10 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
         comb4_entries,
         comb4_table,
         comb_weier,
+        CHORD_IN,
+        CHORD_OUT,
+        chord,
+        chord_plain,
         ec_add,
         mul_comb4,
         p256_ops,
@@ -716,7 +794,7 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
         tom_ops,
         window_table,
     )
-    from zkecdsa_tpu_torch.ops.field import CHORD_IN, NLIMBS, TOM_N, chord, chord_plain, ring_fold_plain
+    from zkecdsa_tpu_torch.ops.field import NLIMBS, TOM_N, ring_fold_plain
 
     shapes: dict[str, list] = {}
 
@@ -728,6 +806,11 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     def affine(ops, pts, call, reps):
         got, rec = _affine_case(ops, pts, call, reps, log, 1, 0)
         shapes.setdefault("to_affine", []).append(rec)
+        return got
+
+    def add(ops, P, Q, call):
+        got, rec = _ec_add_case(ops, P, Q, call, 20, log, 1)
+        shapes.setdefault("ec_add", []).append(rec)
         return got
 
     ops = p256_ops
@@ -755,8 +838,7 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
         f"launches it replaced: {ms_loop:.4f} ms")
     P2 = tab[:, [7, 3]].contiguous()
     Q2 = torch.stack([P, ops.neg(tab[:, 5])], dim=1)
-    case("ec_add", f"P-256 [{N}, 2] (phase A: comS1 and D in one launch)", lambda: ec_add(ops, P2, Q2),
-         lambda: ops.add(P2, Q2), _add_bound(ops, 2 * N), 20, 1)
+    add(ops, P2, Q2, f"P-256 [{N}, 2] (phase A: comS1 and D in one launch)")
     P2a, P2b, Q2a, Q2b = (t.contiguous() for t in (P2[:, 0], P2[:, 1], Q2[:, 0], Q2[:, 1]))
     _exact("ec_add [N, 2] vs two [N] launches",
            [(torch.stack([ec_add(ops, P2a, Q2a), ec_add(ops, P2b, Q2b)], dim=1), ec_add(ops, P2, Q2))])
@@ -850,36 +932,62 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     weier(f"P-256 [{N}, {ROUNDS}] rows (Hr alone, as a call of its own)", c81[:, :ROUNDS], 0)
 
     # -- phase A: A = T + Hr, then one P-256 affine pass [N, 3 + 80 + 80] --
-    A = case("ec_add", f"P-256 [{N}, {ROUNDS}] (A = T + Hr)", lambda: ec_add(ops, T, Hr),
-             lambda: ops.add(T, Hr), _add_bound(ops, N * ROUNDS), 20, 1)
+    A = add(ops, T, Hr, f"P-256 [{N}, {ROUNDS}] (A = T + Hr)")
     small = torch.stack([R, cq[:, 1], cq[:, 0]], dim=1)
     aff_in = torch.cat([small, T, A], dim=1)
     affine(ops, aff_in, f"P-256 [{N}, {aff_in.shape[1]}] (phase A)", 10)
 
-    # -- phase B: T1 = T + D over [K] rows, its affine pass, the chord pass -
+    # -- phase B: T1 = T + D over [K] rows, then one chord launch: T1's
+    #    affine pass and the chord pass, one inverse a row; the pair it
+    #    replaced (to_affine [K], then the old chord kernel, from
+    #    tools/torch_chord_probe.py) timed beside it ----------------------
     Te, De = T.reshape(-1, 3, NLIMBS)[:K], A.reshape(-1, 3, NLIMBS)[:K]
-    T1 = case("ec_add", f"P-256 [{K}] (phase B T1 = T + D)", lambda: ec_add(ops, Te, De),
-              lambda: ops.add(Te, De), _add_bound(ops, K), 20, 1)
-    affine(ops, T1, f"P-256 [{K}] (phase B T1)", 10)
+    T1 = add(ops, Te, De, f"P-256 [{K}] (phase B T1 = T + D)").clone()
     q = TOM_N.p
     x = TOM_N.pack(
         [int.from_bytes(rs.bytes(40), "little") % q for _ in range(K * len(CHORD_IN))], dev
     ).reshape(K, len(CHORD_IN), -1)
-    x[0, 2] = x[0, 0]
-    # K rows, one inversion each (their least work: one batch inversion),
-    # and the 3 + 16 other products a row
+    T1[0] = ops.identity((), dev)  # Z = 0
+    t1x, t1y, _ = ops.to_affine(T1[:4])
+    x[1, 0] = t1x[1]  # i7 = 0
+    x[2, 0] = 0
+    T1[2] = ops.identity((), dev)  # both
+    # the least work: one batch inversion of the K products a b, and 22
+    # products a row (pkx Z, a b, 1/Z = b w, i8 = a (a w), t1x, t1y, i10,
+    # i11, i13, 4 kx y, 4 x rb, 4 kx rb); against the two bounds it
+    # replaces, to_affine [K]'s and the old chord pass's (its 3 + 16
+    # products a row and one batch inversion)
     ladder = (q - 2).bit_length() - 1 + bin(q - 2).count("1") - 1
-    nbytes = x.numel() * 4 + K * 23 * pb
-    bound = _no_looser(f"chord [{K}]", _bound(_batch_inv_mm(q, K) + K * (3 + 16), nbytes),
-                       _bound(K * (ladder + 3 + 16), nbytes))
-    y = case("chord", f"[{K}] phase-B rows mod the Tom-256 order", lambda: chord(x),
-             lambda: chord_plain(x), bound, 10, 1)
-    if not bool(TOM_N.is_zero(y[0, 1])):
+    nbytes = K * (3 + len(CHORD_IN) + len(CHORD_OUT)) * pb
+    old_chord = _no_looser(f"old chord [{K}]", _bound(_batch_inv_mm(q, K) + K * (3 + 16), K * (15 + 23) * pb),
+                           _bound(K * (ladder + 3 + 16), K * (15 + 23) * pb))
+    old_affine = _affine_bound(ops, K)
+    bound = _no_looser(f"chord [{K}]", _bound(_batch_inv_mm(q, K) + K * 22, nbytes),
+                       (old_chord[0] + old_affine[0], "operations"))
+    y = case("chord", f"[{K}] phase-B rows: T1's affine pass and the chord pass mod the Tom-256 order",
+             lambda: chord(T1, x), lambda: chord_plain(T1, x), bound, 10, 1)
+    # the zero rows against Python integers: T1 the identity (Z = 0), i7 =
+    # 0, both; then a random row
+    X = [TOM_N.unpack(x[k])[0] for k in range(4)]
+    if TOM_N.unpack(y[0, :4]) != [0, 0, X[0], pow(X[0], q - 2, q)]:
+        raise AssertionError("chord: the identity's row disagrees with Python integers")
+    if TOM_N.unpack(y[1, 2:4]) != [0, 0] or TOM_N.unpack(y[2, :4]) != [0, 0, 0, 0]:
         raise AssertionError("chord: the inverse of 0 is not 0")
-    row = [int(v) for v in TOM_N.unpack(x[1])]
-    i7 = (row[2] - row[0]) % q
-    if TOM_N.unpack(y[1, :2]) != [i7, pow(i7, q - 2, q)]:
+    X3, Y3, Z3 = TOM_N.unpack(T1[3])
+    t1x3 = X3 * pow(Z3, q - 2, q) % q
+    i7 = (X[3] - t1x3) % q
+    if TOM_N.unpack(y[3, :4]) != [t1x3, Y3 * pow(Z3, q - 2, q) % q, i7, pow(i7, q - 2, q)]:
         raise AssertionError("chord disagrees with Python integers")
+    # the pair it replaced, in the same run
+    from tools.torch_chord_probe import old_chord_pair
+
+    pair, pair_err = old_chord_pair(T1, x, y, _cuda_ms)
+    rec = shapes["chord"][-1]
+    rec.update(ms_pair=pair["pair"], ms_pair_to_affine=pair["to_affine"], ms_pair_old_chord=pair["old_chord"],
+               max_abs_err=max(rec["max_abs_err"], pair_err), bound_ms_pair=old_chord[0] + old_affine[0])
+    log(f"chord [{K}]: {rec['ms']:.4f} ms in one launch; the pair it replaced {pair['pair']:.4f} ms "
+        f"(to_affine [{K}] {pair['to_affine']:.4f}, the old chord kernel {pair['old_chord']:.4f}); bound "
+        f"{bound[0]:.5f} ms (the two old bounds {old_chord[0] + old_affine[0]:.5f})")
 
     # -- Tom-256 commitments: phase A [N, 162], phase B [K, 34], GK [N*4n] --
     def commits(call, batch):
@@ -894,11 +1002,9 @@ def check_prover_kernels(dev, dparams, rs, log) -> dict:
     gk = commits(f"Tom-256 [{N * 4 * n}] (GK commits)", (N * 4 * n,))
     # the phase-B combinations: [K, 5] differences, then cintX [K]
     sP, sQ = cm[:, :5].contiguous(), tom_ops.neg(cm[:, 5:10]).contiguous()
-    s5 = case("ec_add", f"Tom-256 [{K}, 5] (phase B differences)", lambda: ec_add(tom_ops, sP, sQ),
-              lambda: tom_ops.add(sP, sQ), _add_bound(tom_ops, K * 5), 20, 1)
+    s5 = add(tom_ops, sP, sQ, f"Tom-256 [{K}, 5] (phase B differences)")
     cP, cQ = s5[:, 3].contiguous(), cm[:, 0].contiguous()
-    case("ec_add", f"Tom-256 [{K}] (phase B cintX)", lambda: ec_add(tom_ops, cP, cQ),
-         lambda: tom_ops.add(cP, cQ), _add_bound(tom_ops, K), 20, 1)
+    add(tom_ops, cP, cQ, f"Tom-256 [{K}] (phase B cintX)")
     for call, pts in ((f"Tom-256 [{N}, 162] (phase A)", allC),
                       (f"Tom-256 [{K}, 39] (phase B)", torch.cat([cm, s5], dim=1)),
                       (f"Tom-256 [{N * 4 * n}] (GK commits)", gk)):
@@ -1051,9 +1157,9 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
         err = _exact(f"msm_ladder {call}", [(got, plain)])
         _affine_exact(f"msm_ladder vs straus_msm {call}", ops, got, straus_msm(ops, P, nibbles(scs, R, T)))
         ms = _cuda_ms(lambda: msm_ladder(ops, P, bits), 3)
-        record("msm_ladder", call + " (with its ec_add tree)", err, ms, plain_ms,
+        record("msm_ladder", call + " (with its tree_sum tree)", err, ms, plain_ms,
                _bound(R * T * 256 * (mm_dbl + mm_add), R * T * (ops.NCOORD * pb + 256) + R * ops.NCOORD * pb))
-        log(f"msm_ladder {call}: kernel {ms:.3f} ms (with its ec_add tree), plain {plain_ms:.1f} ms, "
+        log(f"msm_ladder {call}: kernel {ms:.3f} ms (with its tree_sum tree), plain {plain_ms:.1f} ms, "
             f"exact, = straus_msm")
 
     # -- straus_msm at path B's one-row shapes (msm: one proof's MultiMult),
@@ -1070,7 +1176,7 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
         record("straus_msm", call, err, ms, plain_ms, _straus_bound(ops, P, nib),
                launches_per_scalar_proof=1,
                plan=dataclasses.asdict(straus_plan(1, T, straus_teams(ops, dev))))
-        log(f"straus_msm {call}: {ms:.4f} ms with its ec_add tree, plain msm {plain_ms:.1f} ms, exact (affine)")
+        log(f"straus_msm {call}: {ms:.4f} ms with its tree_sum tree, plain msm {plain_ms:.1f} ms, exact (affine)")
     return shapes, crossover
 
 
@@ -1329,19 +1435,23 @@ def _mesh_rank(rank: int, world: int, job: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the trace of one prove
+# the trace of one prove and of one verify
 # ---------------------------------------------------------------------------
 
-TRACED = ("ec_add", "window_table", "comb4_entries")  # kernels whose launches are listed
+# kernels whose launches are listed one by one, and the names of their
+# __global__ functions where they are not <kernel>_kernel
+TRACED = ("ec_add", "tree_sum", "window_table", "comb4_entries", "chord")
+_GLOBALS = {"straus_msm": ("straus_kernel",)}
 
 
-def _trace_prove(prove, check, shapes, path, log) -> dict:
-    """One prove under ``utils.profiling.trace`` (torch.profiler, CPU and
-    CUDA activity; the Chrome trace in ``build/trace/``): the device's
-    busy share of the prove's wall; each kernel of ``path``'s device
-    time in the trace beside phase 3's CUDA-event time for one prove (ms
-    x launches a prove, summed over the shapes); and the device time of
-    each launch of the ``TRACED`` kernels, in order."""
+def _trace_run(what, run, check, shapes, path, per, log) -> dict:
+    """One ``what`` (a prove or a verify) under ``utils.profiling.trace``
+    (torch.profiler, CPU and CUDA activity; the Chrome trace in
+    ``build/trace/``): the device's busy share of its wall; each kernel of
+    ``path``'s device time in the trace beside phase 3's CUDA-event time
+    for one run (ms x the records' ``per`` launches, summed over the
+    shapes); and the device time of each launch of the ``TRACED``
+    kernels, in order."""
     import torch
 
     from zkecdsa_tpu_torch.utils.profiling import device_time, trace
@@ -1350,27 +1460,29 @@ def _trace_prove(prove, check, shapes, path, log) -> dict:
     with trace(logdir) as tr:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = prove(None)
+        out = run(None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     check(out)
     busy_us, kernels = device_time(tr.path)
     if not kernels:
-        log(f"trace: one prove {wall:.3f} s; the trace holds no device kernel: device-busy share not measured")
+        log(f"trace: one {what} {wall:.3f} s; the trace holds no device kernel: device-busy share not measured")
         return dict(wall_s=wall, busy_ms=None, busy_share=None)
-    launches = {k: [us / 1e3 for _, name, us in kernels if f"{k}_kernel" in name] for k in path}
-    trace_ms = {k: sum(v) for k, v in launches.items()}
-    event_ms = {k: sum(r["ms"] * r["launches_per_prove"] / r["launches_per_call"] for r in shapes[k])
-                for k in path}
+    names = sorted(set(path) | set(TRACED))
+    launches = {k: [us / 1e3 for _, name, us in kernels
+                    if any(f"{g}<" in name or f"{g}(" in name for g in _GLOBALS.get(k, (f"{k}_kernel",)))]
+                for k in names}
+    trace_ms = {k: sum(launches[k]) for k in path}
+    event_ms = {k: sum(r["ms"] * r.get(per, 0) / r["launches_per_call"] for r in shapes[k]) for k in path}
     share = busy_us / 1e6 / wall
     all_ms = sum(us for _, _, us in kernels) / 1e3
-    log(f"trace: one prove {wall:.3f} s under the profiler; the device busy {busy_us / 1e3:.3f} ms "
+    log(f"trace: one {what} {wall:.3f} s under the profiler; the device busy {busy_us / 1e3:.3f} ms "
         f"({100 * share:.3f}% of the wall); kernels {all_ms:.3f} ms, the port's {sum(trace_ms.values()):.3f} "
-        f"ms (phase 3's events a prove {sum(event_ms.values()):.3f} ms) ({tr.path})")
-    for k in path:
-        log(f"trace: {k} {trace_ms[k]:.4f} ms in {len(launches[k])} launches, phase 3's events a prove "
-            f"{event_ms[k]:.4f} ms" + (f"; each launch {[round(x, 4) for x in launches[k]]} ms"
-                                        if k in TRACED else ""))
+        f"ms (phase 3's events a {what} {sum(event_ms.values()):.3f} ms) ({tr.path})")
+    for k in names:
+        log(f"trace: {what}: {k} {sum(launches[k]):.4f} ms in {len(launches[k])} launches"
+            + (f", phase 3's events a {what} {event_ms[k]:.4f} ms" if k in path else "")
+            + (f"; each launch {[round(x, 4) for x in launches[k]]} ms" if k in TRACED else ""))
     return dict(wall_s=wall, busy_ms=busy_us / 1e3, busy_share=share, kernel_ms=all_ms,
                 trace_ms=trace_ms, event_ms=event_ms, launches_ms={k: launches[k] for k in TRACED})
 
@@ -1421,9 +1533,19 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
 
-    # -- phase 2: build ------------------------------------------------------
+    # -- phase 2: build (the kernels, and beside them the probe libraries
+    #    that hold the chord and ec_add kernels their redesigns replaced) ----
+    import threading
+
+    from tools import torch_chord_probe, torch_ec_add_sweep
+
+    probe_builds = [threading.Thread(target=m.build) for m in (torch_chord_probe, torch_ec_add_sweep)]
+    for t in probe_builds:
+        t.start()
     log(f"build: {_build.build():.1f} s (nvcc, sm_90a, {_build.LIB_PATH.name})")
     _build.load()
+    for t in probe_builds:
+        t.join()
 
     # -- inputs, made from the seed: N signers whose keys open the ring;
     #    the host prover starts on proofs 0..K-1 in worker processes while
@@ -1482,9 +1604,9 @@ def main() -> int:
         setup_path = ("comb8_bases", "comb8_entries")
         prove_path = ("ring_fold", "ec_add", "window_table", "to_affine", "comb_mixed", "shamir",
                       "comb4_bases", "comb4_entries", "mul_comb4", "comb_weier", "chord")
-        verify_path = ("ring_fold", "ec_add", "to_affine", "straus_msm", "comb_mixed")
+        verify_path = ("ring_fold", "ec_add", "tree_sum", "to_affine", "straus_msm", "comb_mixed")
         bucket_path = verify_path + ("bucket_sums", "bucket_fold")  # path A
-        scalar_path = ("straus_msm", "ec_add")  # path B: msm, then its ec_add tree
+        scalar_path = ("straus_msm", "tree_sum")  # path B: msm, then its tree
 
         def zero_counts():
             for fn in counters.values():
@@ -1593,7 +1715,7 @@ def main() -> int:
 
         if launches_prove["field_mul"] != 0 or launches_prove["ring_fold"] != 1:
             raise AssertionError(f"a prove should make 1 ring_fold and 0 field_mul launches: {launches_prove}")
-        traced = _trace_prove(prove, check_proofs, shapes, prove_path, log)
+        traced = _trace_run("prove", prove, check_proofs, shapes, prove_path, "launches_per_prove", log)
 
         # -- phase 4b: the verifier on the N distinct proofs ------------------
         bv = BatchVerifier(params, dev)
@@ -1606,10 +1728,10 @@ def main() -> int:
             "verify", lambda timer: bv.verify(mhs, ring, proofs, timer=timer), verify_path,
             check_verdicts,
         )
-        # phase 3 timed straus_msm, to_affine and ring_fold at every shape
-        # of the verify path: their launches per verify add up to the counts
-        # of the run
-        for k in ("straus_msm", "to_affine", "ring_fold"):
+        # phase 3 timed straus_msm, to_affine, ring_fold, ec_add and
+        # tree_sum at every shape of the verify path: their launches per
+        # verify add up to the counts of the run
+        for k in ("straus_msm", "to_affine", "ring_fold", "ec_add", "tree_sum"):
             at_shapes = sum(r.get("launches_per_verify", 0) for r in shapes[k])
             if at_shapes != launches_verify[k]:
                 raise AssertionError(
@@ -1621,6 +1743,8 @@ def main() -> int:
             raise AssertionError(
                 f"expected the combined Tom-256 MSM and the per-row P-256 MSM once a rep: {vtimer.counts}"
             )
+        vtraced = _trace_run("verify", lambda timer: bv.verify(mhs, ring, proofs, timer=timer), check_verdicts,
+                             shapes, verify_path, "launches_per_verify", log)
         both = prove_wall + verify_wall
         log(f"prove+verify: {both:.3f} s per batch of {N} -> {N / both:.2f} proofs/s on {smi}")
 
@@ -1813,6 +1937,7 @@ def main() -> int:
         "field_mul": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/ops/pallas_field.py:183"),
         "ring_fold": ("zkecdsa_tpu_torch/csrc/field.cu", "zkecdsa_tpu/protocol/batch_gk.py:66"),
         "ec_add": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/pallas_field.py:214"),
+        "tree_sum": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:274"),
         "window_table": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:133"),
         "to_affine": ("zkecdsa_tpu_torch/csrc/ec.cu", "zkecdsa_tpu/ops/curve_ops.py:459"),
         "straus_msm": ("zkecdsa_tpu_torch/csrc/msm.cu", "zkecdsa_tpu/ops/curve_ops.py:393"),
@@ -1869,7 +1994,7 @@ def main() -> int:
         "bucket_verify_s": bucket_wall, "bucket_verify_proofs_per_s": N / bucket_wall,
         "scalar_verify_s_per_proof": dev_med, "host_scalar_verify_s_per_proof": host_med,
         "crossover": crossover,
-        "prove_stages": ptimer.stages, "verify_stages": vtimer.stages, "prove_trace": traced,
+        "prove_stages": ptimer.stages, "verify_stages": vtimer.stages, "prove_trace": traced, "verify_trace": vtraced,
         "bucket_verify_stages": btimer.stages,
         "mesh": {run: [{k: v for k, v in r.items() if not k.startswith("launches")} for r in reports]
                  for run, reports in mesh_runs.items()},

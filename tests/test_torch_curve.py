@@ -286,6 +286,39 @@ def test_window_table_identity_point(name):
         assert e.eq(pts[0].mul(g.new_scalar(k)) if k else g.identity())
 
 
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 12, 16, 17, 33, 64, 65, 130])
+@pytest.mark.parametrize("name", list(CURVES))
+def test_sum_reduce_vs_reference(name, n):
+    """sum_reduce (CPU: tree_sum's plain version, ``ops.sum_reduce``)
+    against the reference's ``CurveOps.sum_reduce`` over two columns of n
+    projective points, each scaled by a random lambda, the identity among
+    them: the same projective integers (the plain tree's pairing order,
+    an odd level carrying its last point), along axis 0 and along axis 1,
+    and the host sum of each column; n up to and past the kernel's 64
+    points a column in shared memory."""
+    tops, jops, g = CURVES[name]
+    rs = np.random.RandomState(70 + n)
+    M, C, p = 2, tops.NCOORD, tops.f.p
+    pts = _points(g, rs, n * M)
+    if n >= 3:
+        pts[3] = g.identity()
+    coords = []
+    for pt in pts:
+        lam = int.from_bytes(rs.bytes(40), "little") % (p - 1) + 1
+        coords.extend(c * lam % p for c in tops._host_coords(pt))
+    P = tops.f.pack(coords).reshape(n, M, C, 9)
+    got = tcurve.sum_reduce(tops, P)
+    want = _coords(jops, jops.sum_reduce(jnp.asarray(jops.f.pack(coords).reshape(n, M, C, jops.f.nlimbs))))
+    assert got.shape == (M, C, 9)
+    assert _tcoords(tops, got) == want
+    assert _tcoords(tops, tcurve.sum_reduce(tops, P.transpose(0, 1), axis=1)) == want
+    for m, r in enumerate(tops.unpack_points(got)):
+        host = g.identity()
+        for pt in pts[m::M]:
+            host = host.add(pt)
+        assert r.eq(host)
+
+
 def test_shamir_vs_double_mul_tables(params):
     """window_table + shamir (CPU: the plain versions) against the
     reference's table + double_mul_tables: the same operations in the same

@@ -219,24 +219,42 @@ def test_kernel_constants_match_python():
 
 
 
-def _chord_rows(rs, K):
-    q = tf.TOM_N.p
-    rows = [[int.from_bytes(rs.bytes(40), "little") % q for _ in range(15)] for _ in range(K)]
-    rows[1][2] = rows[1][0]  # pkx == t1x: a zero to invert
-    return rows
+def _chord_inputs(rs, K):
+    """K phase-B rows as Python ints: T1 as projective P-256 points (each
+    scaled by a random lambda) and the 13 other inputs; row 1 has T1 the
+    identity (Z = 0), row 2 pkx = t1x (i7 = 0), row 3 both (pkx = 0)."""
+    p = tf.TOM_N.p
+    pts = [tcurve.p256_ops.group.generator().mul(tcurve.p256_ops.group.new_scalar(
+        int.from_bytes(rs.bytes(32), "little") % tcurve.p256_ops.group.order)) for _ in range(K)]
+    pts[1] = pts[3] = tcurve.p256_ops.group.identity()
+    t1 = []
+    for pt in pts:
+        lam = int.from_bytes(rs.bytes(40), "little") % (p - 1) + 1
+        t1.append([c * lam % p for c in tcurve.p256_ops._host_coords(pt)])
+    rows = [[int.from_bytes(rs.bytes(40), "little") % p for _ in range(13)] for _ in range(K)]
+    rows[2][0] = t1[2][0] * pow(t1[2][2], -1, p) % p  # pkx == t1x: a zero to invert
+    rows[3][0] = 0
+    return t1, rows
 
 
 def test_chord_vs_reference_field_pass():
-    """The chord pass (CPU: the plain version) against the reference's
-    phase-B field pass (protocol/batch.py:464-493) on F32Field TOM_N:
-    sub/mul and the batch_inv tree, which maps a zero to zero."""
+    """The fused chord pass (CPU: the plain version) against the reference's
+    phase B on F32Field: ``nist_affine_std`` of T1 (protocol/batch.py:463),
+    then the field pass (:464-493) with its batch_inv tree, which maps a
+    zero to zero; rows with T1 the identity, with i7 = 0, and both."""
+    from zkecdsa_tpu.protocol.batch import nist_affine_std
+
     rs = np.random.RandomState(17)
-    K = 5
-    rows = _chord_rows(rs, K)
-    got = tf.TOM_N.unpack(tf.chord(tf.TOM_N.pack(sum(rows, [])).reshape(K, 15, -1)))
+    K = 6
+    t1, rows = _chord_inputs(rs, K)
+    T1 = tf.TOM_N.pack(sum(t1, [])).reshape(K, 3, -1)
+    got = tf.TOM_N.unpack(tcurve.chord(T1, tf.TOM_N.pack(sum(rows, [])).reshape(K, 13, -1)))
     fo = jf.TOM_N
-    t1x, t1y, pkx, pky, txv, pky_r, txr, cb0, cb1, cb2, cb3, *kx = (
-        jnp.asarray(fo.pack([r[s] for r in rows])) for s in range(15)
+    jT1 = jnp.asarray(fo.pack(sum(t1, [])).reshape(K, 3, -1))
+    t1x, t1y, inf = nist_affine_std(jT1)
+    assert np.asarray(inf).tolist() == [False, True, False, True, False, False]
+    pkx, pky, txv, pky_r, txr, cb0, cb1, cb2, cb3, *kx = (
+        jnp.asarray(fo.pack([r[s] for r in rows])) for s in range(13)
     )
     i7 = fo.sub(pkx, t1x)
     i8 = fo.batch_inv(i7)
@@ -246,14 +264,20 @@ def test_chord_vs_reference_field_pass():
     ys, xs = [i8, i9, i10, i12], [i7, i8, i10, i10]
     rb = [cb2, fo.sub(pky_r, cb1), cb3, fo.sub(cb0, txr)]
     ref = (
-        [i7, i8, i9, i10, fo.mul(i10, i10), i12, fo.mul(i10, i12)]
+        [t1x, t1y, i7, i8, i9, i10, fo.mul(i10, i10), i12, fo.mul(i10, i12)]
         + [fo.mul(x, y) for x, y in zip(xs, ys)] + [fo.mul(k, y) for k, y in zip(kx, ys)]
         + [fo.mul(x, r) for x, r in zip(xs, rb)] + [fo.mul(k, r) for k, r in zip(kx, rb)]
     )
-    ref_ints = [fo.unpack_canonical(fo.canon(v)) for v in ref]  # 23 x [K]
+    ref_ints = [fo.unpack_canonical(fo.canon(v)) for v in ref]  # 25 x [K]
+    assert len(ref_ints) == len(tcurve.CHORD_OUT)
     for k in range(K):
-        assert got[23 * k : 23 * k + 23] == [col[k] for col in ref_ints], k
-    assert got[23 + 1] == 0
+        assert got[25 * k : 25 * k + 25] == [col[k] for col in ref_ints], k
+    p = fo.p
+    for k, name in ((1, "Z = 0"), (2, "i7 = 0"), (3, "both")):
+        row = got[25 * k : 25 * k + 25]
+        i7_k = (rows[k][0] - row[0]) % p
+        assert row[2:4] == [i7_k, pow(i7_k, p - 2, p)], name
+    assert got[25 + 0 : 25 + 2] == [0, 0] and got[50 + 2 : 50 + 4] == [0, 0] and got[75 : 79] == [0] * 4
 
 
 def test_point_bytes_and_challenges_vs_reference():

@@ -170,7 +170,9 @@ _CALLS = {
     "comb_table": lambda: tcurve.comb_table(_meta((3, 9))),
     "comb_table_mixed": lambda: tcurve.comb_table_mixed(_meta((2, 4, 9))),
     "DeviceParams": lambda: tbatch.DeviceParams(generate_params_list(), "meta"),
-    "chord": lambda: tf.chord(_meta((4, 15, 9))),
+    "chord": lambda: tcurve.chord(_meta((4, 3, 9)), _meta((4, 13, 9))),
+    "tree_sum": lambda: tcurve.tree_sum(tcurve.tom_ops, _meta((12, 2, 4, 9))),
+    "sum_reduce": lambda: tcurve.sum_reduce(tcurve.p256_ops, _meta((2, 16, 3, 9)), axis=1),
     "bucket_sums": lambda: tmb.bucket_sums(
         tcurve.tom_ops, _meta((2, 8, 4, 9)), _meta((2, 52, 8), torch.uint8), 5
     ),

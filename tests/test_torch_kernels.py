@@ -731,13 +731,94 @@ def test_comb_weier_kernel_vs_plain(prover_tables, lanes, B, cuda):
 
 @pytest.mark.cuda
 def test_chord_kernel_vs_plain(cuda):
-    f = tf.TOM_N
+    """The fused chord kernel (T1 projective in, one inverse a row)
+    against its plain version (to_affine, then the chord pass), bit for
+    bit, with rows where T1 is the identity (Z = 0), where i7 = pkx - t1x
+    = 0, and both; 300 rows: a ragged last block."""
+    f, ops, g = tf.TOM_N, tcurve.p256_ops, p256
     rs = np.random.RandomState(94)
-    x = f.pack(_values(f.p, rs, 300 * 15), cuda).reshape(300, 15, -1)
-    x[0, 2] = x[0, 0]  # a zero row for the inverse
-    got = tf.chord(x)
-    assert torch.equal(got, tf.chord_plain(x))
-    assert bool(f.is_zero(got[0, 1]))
+    K = 300
+    pts = [g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(K)]
+    lam = [int.from_bytes(rs.bytes(40), "little") % (f.p - 1) + 1 for _ in range(K)]
+    T1 = f.pack([c * l % f.p for pt, l in zip(pts, lam) for c in ops._host_coords(pt)], cuda).reshape(K, 3, NL)
+    x = f.pack(_values(f.p, rs, K * 13), cuda).reshape(K, 13, NL)
+    T1[1] = T1[3] = ops.identity((), cuda)  # Z = 0
+    t1x, _, _ = ops.to_affine(T1)
+    x[2, 0] = t1x[2]  # i7 = 0
+    x[3, 0] = 0  # T1 the identity and i7 = 0
+    before = tcurve.chord.launches
+    got = tcurve.chord(T1, x)
+    assert tcurve.chord.launches == before + 1
+    assert torch.equal(got, tcurve.chord_plain(T1, x))
+    assert f.unpack(got[1, :2]) == [0, 0]
+    assert f.unpack(got[2, 2:4]) == [0, 0] and f.unpack(got[3, :4]) == [0] * 4
+    assert f.unpack(got[1, 2:4]) == [f.unpack(x[1, 0])[0], pow(f.unpack(x[1, 0])[0], f.p - 2, f.p)]
+    torch.cuda.synchronize()
+
+
+# ec_add's calls in one prove: phase A's [256, 2] (comS1, D) and [256, 80]
+# (A), phase B's [10240] (T1), Tom-256 [10240, 5] and [10240] (cintX); the
+# verifier's [256, 20] (vphase T1)
+EC_ADD_SHAPES = [
+    (tcurve.p256_ops, (256, 2)), (tcurve.p256_ops, (256, 80)), (tcurve.p256_ops, (10240,)),
+    (tcurve.tom_ops, (10240, 5)), (tcurve.tom_ops, (10240,)), (tcurve.p256_ops, (256, 20)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,shape", EC_ADD_SHAPES, ids=lambda v: getattr(v, "curve_id", v))
+def test_ec_add_call_shapes(ops, shape, cuda):
+    """ec_add (a team of four lanes a pair) at each call shape of a prove
+    and of a verify, bit for bit against ops.add; rows of identity + P,
+    P + P, P + (-P) and identity + identity at the head."""
+    g = p256 if ops is tcurve.p256_ops else tomEdwards256
+    rs = np.random.RandomState(112)
+    P_h, Q_h = _edge_pairs(g, rs, 60)
+    B = int(np.prod(shape))
+    idx = torch.arange(B) % len(P_h)
+    P = ops.pack_points(P_h, cuda)[idx].reshape(shape + (ops.NCOORD, NL))
+    Q = ops.pack_points(Q_h, cuda)[(idx * 7 + 3) % len(Q_h)].reshape(shape + (ops.NCOORD, NL))
+    flat_P, flat_Q = P.view(-1, ops.NCOORD, NL), Q.view(-1, ops.NCOORD, NL)
+    flat_P[:4], flat_Q[:4] = ops.pack_points(P_h[-4:], cuda), ops.pack_points(Q_h[-4:], cuda)
+    before = tcurve.ec_add.launches
+    got = tcurve.ec_add(ops, P, Q)
+    assert tcurve.ec_add.launches == before + 1
+    assert torch.equal(got, ops.add(P, Q))
+    assert ops.is_identity(got.view(-1, ops.NCOORD, NL)[2:4]).all()
+    torch.cuda.synchronize()
+
+
+def _ec_add_levels(ops, P):
+    """The design tree_sum replaced: the plain tree's levels as one
+    ec_add launch each."""
+    while P.shape[0] > 1:
+        h = P.shape[0] // 2
+        P = torch.cat([tcurve.ec_add(ops, P[:h], P[h : 2 * h]), P[2 * h :]], dim=0)
+    return P[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 12, 16, 64, 65, 130])
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_tree_sum_kernel_vs_levels(ops, g, n, cuda):
+    """tree_sum over [n, 3] points (three columns, an identity among them)
+    against the plain version and the ec_add level loop it replaced, bit
+    for bit: one launch up to the shared-memory cap of 64 points (none for
+    one point), one launch a level past it until the column fits."""
+    rs = np.random.RandomState(113 + n)
+    pool = ops.pack_points([g.generator().mul(g.new_scalar(_scalar(g, rs))) for _ in range(31)] + [g.identity()], cuda)
+    P = pool[torch.from_numpy(rs.randint(0, 32, size=(n, 3))).to(cuda)]
+    P[0, 1] = ops.identity((), cuda)
+    before, before_add = tcurve.tree_sum.launches, tcurve.ec_add.launches
+    got = tcurve.sum_reduce(ops, P, axis=0)
+    levels, m = 0, n
+    while m > 64:
+        levels, m = levels + 1, m // 2 + m % 2
+    assert tcurve.tree_sum.launches == before + (1 if n > 1 else 0)
+    assert tcurve.ec_add.launches == before_add + levels
+    assert torch.equal(got, ops.sum_reduce(P))
+    assert torch.equal(got, _ec_add_levels(ops, P))
+    assert torch.equal(tcurve.sum_reduce(ops, P.transpose(0, 1).contiguous(), axis=1), got)
     torch.cuda.synchronize()
 
 

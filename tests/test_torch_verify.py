@@ -252,3 +252,52 @@ def test_batch_verifier_on_bucket_backend(gate, bucket_config, monkeypatch):
         straus = port.verify([mh, mh], ring, batch)
     assert seen == []
     assert got == ref == straus == [True, False]
+
+
+@pytest.fixture(scope="module")
+def ring_of_one():
+    """One signer whose key is the whole ring (n = 0 index bits), proved by
+    the port's host prover."""
+    from zkecdsa_tpu_torch import ecdsa
+    from zkecdsa_tpu_torch.zkp_attest_list import generate_params_list, prove_signature_list
+
+    with trng.deterministic(5):
+        params = generate_params_list()
+        kp = ecdsa.generate_keypair()
+        msg = b"ring of one"
+        sig = ecdsa.sign(kp, msg)
+        pub = ecdsa.export_public_raw(kp)
+    key = ecdsa.key_to_int(pub)
+    mh = hashlib.sha256(msg).digest()
+    with trng.scoped(trng.DeterministicSource(77)):
+        proof = prove_signature_list(params, mh, sig, pub, 0, [key])
+    return params, mh, key, proof
+
+
+def test_ring_of_one_key(ring_of_one):
+    """A ring of one key: the batched verifier and ``batch_verify_membership``
+    give the verdicts of the JAX package's host verifier and of the
+    port's on the same parameters, key and proof (the JAX BatchVerifier
+    raises here, a reference fault the port does not copy)."""
+    from zkecdsa_tpu_torch.protocol.batch_gk import batch_verify_membership
+    from zkecdsa_tpu_torch.zkp_attest_list import SystemParametersList, verify_signature_list
+
+    params, mh, key, proof = ring_of_one
+    bad = hashlib.sha256(b"another message").digest()
+    jparams = jread_json(JParams, write_json(SystemParametersList, params))
+    jproof = jread_json(JProof, write_json(SignatureProofList, proof))
+    with jrng.deterministic(6):
+        ref = [jverify_host(jparams, m, [key], jproof) for m in (mh, bad)]
+    assert ref == [True, False]
+    with trng.deterministic(6):
+        host = [verify_signature_list(params, m, [key], proof) for m in (mh, bad)]
+    assert host == ref
+    with trng.deterministic(7):
+        got = tbv.BatchVerifier(params, device="cpu").verify([mh, bad], [key], [proof, proof])
+    assert got == ref
+    mp = proof.membershipProof
+    assert len(mp.f) == 0
+    wrong = params.proof_group.commit(key + 1).p
+    assert batch_verify_membership(
+        params.proof_group, [proof.keyXcom, wrong], [key], [mp, mp], device="cpu"
+    ) == [True, False]

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's ``to_affine`` kernel over forced group sizes, at the
-main path's seven shapes, on one NVIDIA GPU.
+main path's six shapes, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a card and ``nvcc``:
 
     python3 tools/torch_affine_sweep.py [out.json]
 
-For each shape (the prover's P-256 [256, 163], [10240] and Tom-256
-[256, 162], [10240, 39], [12288]; the verifier's [256, 20, 2] on both
+For each shape (the prover's P-256 [256, 163] and Tom-256 [256, 162],
+[10240, 39], [12288]; the verifier's [256, 20, 2] on both
 curves) it builds random canonical coordinates from a seed (to_affine is
 field arithmetic: the points need not lie on the curve; one Z in 97 is
 zero), holds the kernel under ``affine_plan``'s group against the plain
@@ -29,7 +29,7 @@ sys.path.insert(0, str(ROOT))
 
 GROUPS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 SHAPES = (
-    ("p256", (256, 163)), ("p256", (10240,)), ("tomEdwards256", (256, 162)),
+    ("p256", (256, 163)), ("tomEdwards256", (256, 162)),
     ("tomEdwards256", (10240, 39)), ("tomEdwards256", (12288,)),
     ("p256", (256, 20, 2)), ("tomEdwards256", (256, 20, 2)),
 )

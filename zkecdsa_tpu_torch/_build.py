@@ -49,6 +49,7 @@ _SIGNATURES = {
     "zk_field_sum": [_I, _L, _L, _P, _P, _P],
     "zk_ring_fold": [_I, _L, _P, _P, _P, _P, _P],
     "zk_ec_add": [_I, _L, _P, _P, _P, _P],
+    "zk_tree_sum": [_I, _I, _L, _P, _P, _P],
     "zk_window_table": [_I, _L, _P, _P, _P],
     "zk_to_affine": [_I, _L, _L, _P, _P, _P, _P, _P],
     "zk_to_affine_resident_warps": [_I, _P],
@@ -65,7 +66,7 @@ _SIGNATURES = {
     "zk_mul_comb4_resident_warps": [_P],
     "zk_comb8_bases": [_I, _L, _P, _P, _P],
     "zk_comb8_entries": [_I, _L, _P, _P, _P, _P],
-    "zk_chord": [_L, _P, _P, _P],
+    "zk_chord": [_L, _P, _P, _P, _P],
     "zk_bucket_sums": [_I, _L, _L, _I, _I, _P, _P, _P, _P],
     "zk_bucket_fold": [_I, _L, _I, _I, _I, _P, _P, _P],
     "zk_msm_ladder": [_I, _L, _P, _P, _P, _P],

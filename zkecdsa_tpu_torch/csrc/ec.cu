@@ -1,13 +1,32 @@
 // ec_add: complete point addition over [B, C, 9] canonical projective
-// coordinates, one thread per point pair; and its siblings window_table
-// and to_affine.
+// coordinates, a team of four lanes per point pair; and its siblings
+// tree_sum, window_table and to_affine.
 //
 // ec_add replaces zkecdsa_tpu/ops/pallas_field.py:214 pallas_ec_add and the
 // generic WeierOps.add / EdwardsOps.add (zkecdsa_tpu/ops/curve_ops.py:502,
 // :589).  Bound on the H100: 32-bit integer multiply-adds.  An add is ~14
 // Montgomery products plus C to-Montgomery and C from-Montgomery passes per
 // point against 2*C*36 bytes read and C*36 written.  Every intermediate
-// stays in registers.
+// stays in registers.  The callers' batches (512 to 51,200 pairs) leave
+// most of the card idle, so a call takes one pair's chain of dependent
+// products: ~23 for a thread a pair, ~8 for a team of four lanes
+// (curve.cuh), which runs the add in 3 (Tom-256) or 5 (P-256) rounds,
+// each lane converting one coordinate in and one out.  So a team takes
+// every pair; one thread a pair wins only for P-256 batches past about
+// 100k pairs, which no caller sends (tools/torch_ec_add_sweep.py times
+// both forms; PERF.md).
+
+// tree_sum replaces CurveOps.sum_reduce (zkecdsa_tpu/ops/curve_ops.py:274,
+// a level of adds at a time: n - 1 adds, an odd level carrying its last
+// point up) in one launch where ec_add took a launch a level: points
+// [n, M, C, 9] -> [M, C, 9], a block a column.  The column's points go to
+// Montgomery form in shared memory (n <= TREE_MAX); each level's pairs
+// (i, i + h), h = level / 2, are added by the block's teams, the sum
+// written to slot i and an odd level's last point moved to slot h, with a
+// barrier after the reads and after the writes; the plain pairing order,
+// so the integers are the level loop's.  A column of n points is
+// ceil(log2 n) team adds long.  Past TREE_MAX points the wrapper runs the
+// first levels as ec_add launches, one a level, until the column fits.
 //
 // window_table replaces zkecdsa_tpu/ops/curve_ops.py:133 table (a
 // lax.scan of 15 adds) in one launch, where 15 ec_add launches would each
@@ -53,20 +72,71 @@
 
 #include "curve.cuh"
 
+#define EC_THREADS 128  // threads of an ec_add block
+#define TREE_MAX 64      // points of a tree_sum column in shared memory
 #define AFFINE_THREADS 128
 #define WTAB_POINTS 8  // points (teams) per one-warp window_table block
 
+// a team of four lanes a pair: lane q converts coordinate q in and out
 template <int CID>
-__global__ void ec_add_kernel(long long B, const uint32_t* __restrict__ P,
-                              const uint32_t* __restrict__ Q, uint32_t* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    constexpr int C = CurveT<CID>::C;
+__global__ void __launch_bounds__(EC_THREADS) ec_add_kernel(long long B,
+                                                            const uint32_t* __restrict__ P,
+                                                            const uint32_t* __restrict__ Q,
+                                                            uint32_t* __restrict__ out) {
+    constexpr int PT = CurveT<CID>::C * ZK_NL;
+    const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / ZK_TEAM;
+    // a team past B runs pair B-1 and stores nothing
+    const bool live = i0 < B;
+    const long long i = live ? i0 : B - 1;
     Pt<CID> a, b, r;
-    pt_load<CID>(a, P + i * C * ZK_NL);
-    pt_load<CID>(b, Q + i * C * ZK_NL);
-    pt_add<CID>(r, a, b);
-    pt_store<CID>(out + i * C * ZK_NL, r);
+    team_to_mont<CID>(a, P + i * PT);
+    team_to_mont<CID>(b, Q + i * PT);
+    team_add<CID>(r, a, b);
+    team_store<CID>(out + i * PT, r, live);
+}
+
+// The whole tree of a column in one block (n <= TREE_MAX points, the
+// column's points [n] at stride M points); see the head of this file.
+template <int CID>
+__global__ void __launch_bounds__(TREE_MAX / 2 * ZK_TEAM) tree_sum_kernel(
+    int n, long long M, const uint32_t* __restrict__ P, uint32_t* __restrict__ out) {
+    constexpr int C = CurveT<CID>::C;
+    constexpr int PT = C * ZK_NL;
+    __shared__ uint32_t pts[TREE_MAX * PT];
+    const ZkModulus& Mod = curve_mod<CID>();
+    const long long m = blockIdx.x;
+    for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
+        Fe t;
+        fe_load(t, P + ((long long)(e / C) * M + m) * PT + (e % C) * ZK_NL);
+        fe_to_mont(t, t, Mod);
+        fe_store(pts + e * ZK_NL, t);
+    }
+    __syncthreads();
+    const int team = threadIdx.x / ZK_TEAM;
+    const int q = team_lane();
+    for (int s = n; s > 1;) {
+        const int h = s / 2;
+        // teams past the level's h pairs run pair h-1 and write nothing
+        const int i = team < h ? team : h - 1;
+        Pt<CID> a, b, r;
+        pt_load_raw<CID>(a, pts + i * PT);
+        pt_load_raw<CID>(b, pts + (i + h) * PT);
+        team_add<CID>(r, a, b);
+        __syncthreads();
+        Fe c;
+        team_coord<CID>(c, r);
+        if (team < h && q < C) fe_store(pts + team * PT + q * ZK_NL, c);
+        if (s & 1) {
+            for (int e = threadIdx.x; e < PT; e += blockDim.x) pts[h * PT + e] = pts[(s - 1) * PT + e];
+        }
+        __syncthreads();
+        s = h + (s & 1);
+    }
+    if (threadIdx.x < C) {
+        Fe t;
+        fe_from_mont(t, pts + threadIdx.x * ZK_NL, Mod);
+        fe_store(out + m * PT + threadIdx.x * ZK_NL, t);
+    }
 }
 
 template <int CID>
@@ -169,11 +239,25 @@ extern "C" int zk_ec_add(int curve, long long B, const void* P, const void* Q, v
                          void* stream) {
     if (B == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int threads = 128;
     const int bad = zk_dispatch_curve(curve, [&](auto c) {
         constexpr int CID = decltype(c)::value;
-        ec_add_kernel<CID><<<grid_for(B, threads), threads, 0, st>>>(
+        ec_add_kernel<CID><<<grid_for(B * ZK_TEAM, EC_THREADS), EC_THREADS, 0, st>>>(
             B, (const uint32_t*)P, (const uint32_t*)Q, (uint32_t*)out);
+    });
+    return bad ? bad : (int)cudaGetLastError();
+}
+
+// The whole tree of each of the M columns of n <= TREE_MAX points -> [M].
+extern "C" int zk_tree_sum(int curve, int n, long long M, const void* P, void* out, void* stream) {
+    if (M == 0) return 0;
+    if (n < 1 || n > TREE_MAX) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int bad = zk_dispatch_curve(curve, [&](auto c) {
+        constexpr int CID = decltype(c)::value;
+        // a team a pair of the first level, in whole warps
+        const int threads = ((n / 2 * ZK_TEAM + 31) / 32) * 32;
+        tree_sum_kernel<CID><<<(unsigned)M, threads > 0 ? threads : 32, 0, st>>>(
+            n, M, (const uint32_t*)P, (uint32_t*)out);
     });
     return bad ? bad : (int)cudaGetLastError();
 }

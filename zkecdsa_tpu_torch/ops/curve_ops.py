@@ -13,8 +13,8 @@ coordinates wherever they take the same sequence of point operations.
 Plain versions (``CurveOps`` methods) run on any device in plain PyTorch;
 inside a method the coordinates stay in the field's redundant working form
 and are canonicalised once at the end.  The kernel wrappers
-(:func:`ec_add`, :func:`window_table`, :func:`to_affine`,
-:func:`straus_msm`, :func:`comb_mixed`, the prover's P-256 kernels
+(:func:`ec_add`, :func:`tree_sum`, :func:`window_table`, :func:`to_affine`,
+:func:`chord`, :func:`straus_msm`, :func:`comb_mixed`, the prover's P-256 kernels
 :func:`shamir`, :func:`comb4_bases`, :func:`comb4_entries`,
 :func:`mul_comb4`, :func:`comb_weier`, :func:`msm`, :func:`msm_ladder`,
 and the parameter set-up's :func:`comb8_bases`, :func:`comb8_entries`)
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .field import NLIMBS, P256_P, TOM_P, WAR_P, FieldT
+from .field import NLIMBS, P256_P, TOM_N, TOM_P, WAR_P, FieldT, _check_limbs
 
 __all__ = [
     "CurveOps",
@@ -47,6 +47,10 @@ __all__ = [
     "scalar_bits",
     "ec_add",
     "to_affine",
+    "chord",
+    "chord_plain",
+    "CHORD_IN",
+    "CHORD_OUT",
     "affine_plan",
     "affine_threads",
     "AffinePlan",
@@ -60,6 +64,7 @@ __all__ = [
     "MixedComb",
     "WeierComb",
     "sum_reduce",
+    "tree_sum",
     "window_table",
     "shamir",
     "comb4_table",
@@ -310,6 +315,15 @@ class CurveOps:
         for j in range(comb.shape[0]):
             acc = self._wadd(acc, self._work(comb[j][d[..., j]]))
         return self._canon(acc)
+
+    def sum_reduce(self, P: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Tree sum of points along an axis (the reference's
+        ``sum_reduce``): exactly n-1 adds, an odd level carrying its last
+        point up; the identity for an empty axis."""
+        P = P.movedim(axis, 0)
+        if P.shape[0] == 0:
+            return self.identity(P.shape[1:-2], P.device).contiguous()
+        return self._canon(self._wsum(self._work(P), 0))
 
     def _wsum(self, Pw: torch.Tensor, axis: int) -> torch.Tensor:
         """Tree sum with exactly n-1 adds; an odd width carries its last
@@ -640,8 +654,9 @@ def _aligned(d: torch.Tensor) -> torch.Tensor:
 def ec_add(ops: CurveOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     """Complete point addition over canonical [..., C, 9] points (batch
     dims broadcast).  Kernel ``csrc/ec.cu`` (replaces
-    ``zkecdsa_tpu/ops/pallas_field.py:214 pallas_ec_add``); bound by 32-bit
-    integer multiply-adds.  A CPU tensor takes ``ops.add``."""
+    ``zkecdsa_tpu/ops/pallas_field.py:214 pallas_ec_add``), a team of four
+    lanes a pair; bound by 32-bit integer multiply-adds.  A CPU tensor
+    takes ``ops.add``."""
     if P.device.type == "cpu":
         return ops.add(P, Q)
     lib = _build.load()
@@ -733,16 +748,131 @@ def to_affine(ops: CurveOps, P: torch.Tensor, group: int | None = None):
 to_affine.launches = 0
 
 
-def sum_reduce(ops: CurveOps, P: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Tree sum of points along an axis through :func:`ec_add`: exactly
-    n-1 adds, an odd width carries its last element up a level."""
-    P = P.movedim(axis, 0)
-    if P.shape[0] == 0:
-        return ops.identity(P.shape[1:-2], P.device)
-    while P.shape[0] > 1:
-        h = P.shape[0] // 2
+# Rows of the phase-B chord pass (see :func:`chord`), all mod TOM_N: the
+# inputs per row beside T1, then the outputs.
+CHORD_IN = (
+    "pkx", "pky", "txv", "pky_r", "txr",
+    "cb0", "cb1", "cb2", "cb3", "kx0", "kx1", "kx2", "kx3",
+)
+CHORD_OUT = (
+    ("t1x", "t1y", "i7", "i8", "i9", "i10", "i11", "i12", "i13")
+    + tuple(f"ext_vals{j}" for j in range(8)) + tuple(f"ext_blinds{j}" for j in range(8))
+)
+
+
+def chord_plain(T1: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`chord`, on any device: the
+    P-256 affine pass of T1 (``p256_ops.to_affine``), then the chord pass
+    with its own inverse."""
+    f = TOM_N
+    t1x, t1y, _ = p256_ops.to_affine(T1)
+    pkx, pky, txv, pky_r, txr, cb0, cb1, cb2, cb3, *kx = f.to_work(x).unbind(-2)
+    wx, wy = f.to_work(t1x), f.to_work(t1y)
+    i7 = f.wsub(pkx, wx)
+    i8 = f.winv(i7)
+    i9 = f.wsub(pky, wy)
+    i10 = f.wmul(i8, i9)
+    i11 = f.wmul(i10, i10)
+    i12 = f.wsub(wx, txv)
+    i13 = f.wmul(i10, i12)
+    ys = [i8, i9, i10, i12]
+    xs = [i7, i8, i10, i10]
+    rb = [cb2, f.wsub(pky_r, cb1), cb3, f.wsub(cb0, txr)]
+    out = (
+        [wx, wy, i7, i8, i9, i10, i11, i12, i13]
+        + [f.wmul(a, b) for a, b in zip(xs, ys)]
+        + [f.wmul(a, b) for a, b in zip(kx, ys)]
+        + [f.wmul(a, b) for a, b in zip(xs, rb)]
+        + [f.wmul(a, b) for a, b in zip(kx, rb)]
+    )
+    return f.canon(torch.stack(out, dim=-2))
+
+
+def chord(T1: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Phase B's affine pass of T1 and its field pass of the point-add
+    sub-proofs, per row and mod TOM_N (the Tom-256 order, which is the
+    P-256 base prime, so P-256 coordinates carry over unchanged): T1
+    [K, 3, 9] canonical projective P-256 points and x [K, 13, 9] canonical
+    rows in the order of ``CHORD_IN`` -> [K, 25, 9] canonical, in the
+    order of ``CHORD_OUT``:
+
+    * t1x, t1y, T1's affine coordinates ((0, 0) for the identity);
+    * the chord-rule intermediates (pointAdd.ts:119-136)
+      i7 = pkx - t1x, i8 = i7^-1 (0 maps to 0), i9 = pky - t1y,
+      i10 = i8 i9, i11 = i10^2, i12 = t1x - txv, i13 = i10 i12;
+    * ext_vals x_j y_j, then kx_j y_j, and ext_blinds x_j rb_j, then
+      kx_j rb_j, with y = [i8, i9, i10, i12], x = [i7, i8, i10, i10],
+      rb = [cb2, pky_r - cb1, cb3, cb0 - txr].
+
+    Kernel ``csrc/chord.cu`` (replaces ``zkecdsa_tpu/ops/f32field.py:441
+    batch_inv`` and the field pass of ``protocol/batch.py:464-493``, with
+    the affine pass of T1 before it, ``nist_affine_std`` at ``:463``): one
+    thread per row and one Fermat inverse a row for both of the row's
+    inversions (1/Z and 1/i7); the inverses are unique, so the integers
+    are the plain version's.  A CPU tensor takes :func:`chord_plain`."""
+    if x.device.type == "cpu":
+        return chord_plain(T1, x)
+    lib = _build.load()
+    _check_points(p256_ops, T1)
+    _check_limbs(x)
+    K = x.shape[0]
+    if x.dim() != 3 or x.shape[1] != len(CHORD_IN) or tuple(T1.shape) != (K, 3, NLIMBS):
+        raise ValueError(
+            f"expected T1 [K, 3, 9] and rows [K, {len(CHORD_IN)}, 9], got {tuple(T1.shape)}, "
+            f"{tuple(x.shape)}"
+        )
+    T1, x = T1.contiguous(), x.contiguous()
+    out = torch.empty((K, len(CHORD_OUT), NLIMBS), dtype=torch.int32, device=x.device)
+    code = lib.zk_chord(K, T1.data_ptr(), x.data_ptr(), out.data_ptr(), _stream(x))
+    _build.check(code, "zk_chord")
+    chord.launches += 1
+    return out
+
+
+chord.launches = 0
+
+
+_TREE_MAX = 64  # points of a tree_sum column in shared memory (csrc/ec.cu TREE_MAX)
+
+
+def tree_sum(ops: CurveOps, P: torch.Tensor) -> torch.Tensor:
+    """Sum of canonical points [n, ..., C, 9] along axis 0 -> [..., C, 9],
+    in the plain tree's order (level by level, pairs (i, i + n/2), an odd
+    level carrying its last point), so the integers are
+    ``ops.sum_reduce``'s.  Kernel ``csrc/ec.cu`` (replaces
+    ``zkecdsa_tpu/ops/curve_ops.py:274 sum_reduce``, a level of adds at a
+    time): one launch a tree for n <= 64, a block a column; a larger n
+    first runs the tree's levels as :func:`ec_add` launches, one a level,
+    until it fits.  n = 0 gives the identity and n = 1 the point, with no
+    launch.  A CPU tensor takes ``ops.sum_reduce``."""
+    if P.device.type == "cpu":
+        return ops.sum_reduce(P)
+    n = P.shape[0]
+    if n == 0:
+        return ops.identity(P.shape[1:-2], P.device).contiguous()
+    if n == 1:
+        return P[0]
+    lib = _build.load()
+    _check_points(ops, P)
+    while n > _TREE_MAX:
+        h = n // 2
         P = torch.cat([ec_add(ops, P[:h], P[h : 2 * h]), P[2 * h :]], dim=0)
-    return P[0]
+        n = P.shape[0]
+    P = P.contiguous()
+    out = torch.empty(P.shape[1:], dtype=torch.int32, device=P.device)
+    code = lib.zk_tree_sum(ops.curve_id, n, P.shape[1:-2].numel(), P.data_ptr(), out.data_ptr(), _stream(P))
+    _build.check(code, "zk_tree_sum")
+    tree_sum.launches += 1
+    return out
+
+
+tree_sum.launches = 0
+
+
+def sum_reduce(ops: CurveOps, P: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Tree sum of points along an axis through :func:`tree_sum`: exactly
+    n-1 adds, an odd width carries its last element up a level."""
+    return tree_sum(ops, P.movedim(axis, 0))
 
 
 _FOLD_TEAMS = 64  # teams of one block, folded in shared memory (msm.cu MAX_TEAMS)
@@ -795,8 +925,8 @@ def straus_plan(R: int, T: int, teams: int) -> StrausPlan:
     team's chain is its terms' table builds (14 adds each), 256 doublings
     and 64 adds a term, so fewer terms give shorter chains while the teams
     fit, and a second wave would double the time.  A row of up to 64
-    chunks is one part (folded in its block, no ``ec_add`` launch); small
-    parts share a block of at least one warp."""
+    chunks is one part (folded in its block, no :func:`tree_sum` launch);
+    small parts share a block of at least one warp."""
     want = max(1, teams // max(1, R))
     chunk = -(-T // min(T, want)) if T else 1
     nchunks = -(-T // chunk) if T else 0
@@ -818,7 +948,7 @@ def straus_msm(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor) -> tor
     msm_shared``): one team of four lanes per chunk of terms, geometry from
     :func:`straus_plan`; the chunks of a row fold in the kernel, and only
     a row of more than 64 chunks leaves parts that :func:`sum_reduce`
-    adds with :func:`ec_add`.  The kernel adds in another order than the
+    adds with :func:`tree_sum`.  The kernel adds in another order than the
     reference's schedule, so its projective coordinates differ from
     ``ops.msm_shared``'s; the group element is the same.  A CPU tensor
     takes ``ops.msm_shared``."""

@@ -32,8 +32,7 @@ Kernel wrappers
 ---------------
 :func:`field_mul` (``csrc/field.cu``); :func:`ring_fold` (``csrc/field.cu``),
 the GK ring contraction in one launch; :func:`field_sum` (``csrc/field.cu``),
-the sum over a leading axis that folds the sharded GK partials;
-:func:`chord` (``csrc/chord.cu``), the prover's phase-B field pass.  A CPU
+the sum over a leading axis that folds the sharded GK partials.  A CPU
 tensor takes the plain version; any other tensor launches the kernel or
 raises.
 """
@@ -60,9 +59,6 @@ __all__ = [
     "ring_fold",
     "ring_fold_plain",
     "bytes_le",
-    "chord",
-    "chord_plain",
-    "CHORD_IN",
 ]
 
 NLIMBS = 9  # 32-bit limbs per element at the kernel boundary
@@ -550,73 +546,3 @@ def field_sum(f: FieldT, x: torch.Tensor) -> torch.Tensor:
 
 
 field_sum.launches = 0
-
-
-# Rows of the phase-B chord pass (see :func:`chord`), all mod TOM_N: the
-# inputs per row, then the outputs.
-CHORD_IN = (
-    "t1x", "t1y", "pkx", "pky", "txv", "pky_r", "txr",
-    "cb0", "cb1", "cb2", "cb3", "kx0", "kx1", "kx2", "kx3",
-)
-CHORD_OUT = 7 + 8 + 8  # i7..i13, ext_vals, ext_blinds
-
-
-def chord_plain(x: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of :func:`chord`, on any device."""
-    f = TOM_N
-    t1x, t1y, pkx, pky, txv, pky_r, txr, cb0, cb1, cb2, cb3, *kx = f.to_work(x).unbind(-2)
-    i7 = f.wsub(pkx, t1x)
-    i8 = f.winv(i7)
-    i9 = f.wsub(pky, t1y)
-    i10 = f.wmul(i8, i9)
-    i11 = f.wmul(i10, i10)
-    i12 = f.wsub(t1x, txv)
-    i13 = f.wmul(i10, i12)
-    ys = [i8, i9, i10, i12]
-    xs = [i7, i8, i10, i10]
-    rb = [cb2, f.wsub(pky_r, cb1), cb3, f.wsub(cb0, txr)]
-    out = (
-        [i7, i8, i9, i10, i11, i12, i13]
-        + [f.wmul(a, b) for a, b in zip(xs, ys)]
-        + [f.wmul(a, b) for a, b in zip(kx, ys)]
-        + [f.wmul(a, b) for a, b in zip(xs, rb)]
-        + [f.wmul(a, b) for a, b in zip(kx, rb)]
-    )
-    return f.canon(torch.stack(out, dim=-2))
-
-
-def chord(x: torch.Tensor) -> torch.Tensor:
-    """The phase-B field pass of the point-add sub-proofs, per row and mod
-    TOM_N (the Tom-256 order, which is the P-256 base prime, so P-256
-    affine coordinates carry over unchanged): x [K, 15, 9] canonical rows
-    in the order of ``CHORD_IN`` -> [K, 23, 9] canonical:
-
-    * the chord-rule intermediates (pointAdd.ts:119-136)
-      i7 = pkx - t1x, i8 = i7^-1 (0 maps to 0), i9 = pky - t1y,
-      i10 = i8 i9, i11 = i10^2, i12 = t1x - txv, i13 = i10 i12;
-    * ext_vals x_j y_j, then kx_j y_j, and ext_blinds x_j rb_j, then
-      kx_j rb_j, with y = [i8, i9, i10, i12], x = [i7, i8, i10, i10],
-      rb = [cb2, pky_r - cb1, cb3, cb0 - txr].
-
-    Kernel ``csrc/chord.cu`` (replaces ``zkecdsa_tpu/ops/f32field.py:441
-    batch_inv`` and the field pass of ``protocol/batch.py:464-493``): one
-    thread per row with its own Fermat inverse, so no prefix/suffix
-    product trees; the inverse is unique, so the integers are the same.
-    A CPU tensor takes :func:`chord_plain`."""
-    if x.device.type == "cpu":
-        return chord_plain(x)
-    lib = _build.load()
-    _check_limbs(x)
-    if x.dim() != 3 or x.shape[1] != len(CHORD_IN):
-        raise ValueError(f"expected [K, {len(CHORD_IN)}, 9] rows, got {tuple(x.shape)}")
-    x = x.contiguous()
-    out = torch.empty((x.shape[0], CHORD_OUT, NLIMBS), dtype=torch.int32, device=x.device)
-    code = lib.zk_chord(
-        x.shape[0], x.data_ptr(), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream
-    )
-    _build.check(code, "zk_chord")
-    chord.launches += 1
-    return out
-
-
-chord.launches = 0

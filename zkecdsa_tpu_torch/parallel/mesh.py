@@ -290,7 +290,7 @@ def sharded_msm(mesh: Mesh, ops, points: torch.Tensor, digits: torch.Tensor) -> 
     """sum_i s_i * P_i with the terms sharded over ``ring``: points
     [T, C, 9], MSB-first nibbles [T, 64] -> [C, 9] on every rank.  Each
     rank sums its terms on ``msm`` (``straus_msm`` on one row); the
-    partial points are gathered and folded with ``ec_add``
+    partial points are gathered and folded with ``tree_sum``
     (``sum_reduce``)."""
     dev = mesh.device
     local = msm(ops, shard_batch(mesh, points, "ring").to(dev), shard_batch(mesh, digits, "ring").to(dev))

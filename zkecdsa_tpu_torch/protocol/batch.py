@@ -8,10 +8,11 @@ per proof; here the device works on whole batches).
   per-base comb, P-256 comb, Tom-256 comb, point-add and affine kernels;
 * challenge (host): Fiat-Shamir over the device's affine coordinates;
 * phase B (device, :func:`phase_b_flat`): the even-bit rounds of all
-  instances as one flat [K] row axis - T1 = T + D, the chord-rule field
-  pass (kernel ``chord``), the 34 commitments per row and the homomorphic
-  combinations the sub-proof hashes need; under a mesh, :func:`phase_b`
-  on the [N, E] layout, which shards over the instances;
+  instances as one flat [K] row axis - T1 = T + D, its affine pass and the
+  chord-rule field pass (kernel ``chord``, one inverse a row), the 34
+  commitments per row and the homomorphic combinations the sub-proof
+  hashes need; under a mesh, :func:`phase_b` on the [N, E] layout, which
+  shards over the instances;
 * GK membership (``batch_gk.batch_prove_membership``): the d-values on the
   ring-fold kernel and the 4n commitments per instance on the comb kernel;
 * responses (host): scalar arithmetic and proof assembly, producing the
@@ -60,6 +61,7 @@ from ..ops.curve_ops import (
     COMB_WINDOWS,
     MixedComb,
     WeierComb,
+    chord,
     comb4_table,
     comb_mixed,
     comb_table,
@@ -73,7 +75,7 @@ from ..ops.curve_ops import (
     tom_ops,
     window_table,
 )
-from ..ops.field import P256_N, TOM_N, FieldT, bytes_le, chord
+from ..ops.field import P256_N, TOM_N, FieldT, bytes_le
 from ..parallel.mesh import gather, shard_batch
 from ..utils import rng
 from ..utils.profiling import stages
@@ -344,15 +346,16 @@ def phase_b_flat(tabs, T, D, TxC, TyC, pkX, pkY, Tx_v, pkx_v, pky_v, pky_r,
     TxC, TyC, Tx_v, T_e, txr_e = map(rounds, (TxC, TyC, Tx_v, T, txr))
     pkX, pkY, D = pkX[inst], pkY[inst], D[inst]
     T1 = ec_add(p256_ops, T_e, D)
-    t1x, t1y, _ = to_affine(p256_ops, T1)
-    # chord-rule intermediates and the C4/A42 expansions over the Tom order
-    # (pointAdd.ts:119-136): P := T1 (x1), Q := pk (x2), R := T (x3)
-    y = chord(torch.stack(
-        [t1x, t1y, pkx_v[inst], pky_v[inst], Tx_v, pky_r[inst], txr_e]
+    # T1's affine coordinates, the chord-rule intermediates and the C4/A42
+    # expansions over the Tom order, one inverse a row (pointAdd.ts:119-136):
+    # P := T1 (x1), Q := pk (x2), R := T (x3)
+    y = chord(T1, torch.stack(
+        [pkx_v[inst], pky_v[inst], Tx_v, pky_r[inst], txr_e]
         + list(com_blinds[:, :4].unbind(1)) + list(com_vals[:, 6:10].unbind(1)),
         dim=1,
     ))
-    ints, ext_vals, ext_blinds = y[:, :7], y[:, 7:15], y[:, 15:]
+    t1x, t1y = y[:, 0], y[:, 1]
+    ints, ext_vals, ext_blinds = y[:, 2:9], y[:, 9:17], y[:, 17:]
     # value slots 0..5: t1x, t1y, i8, i10, i11, i13
     fills = torch.stack([t1x, t1y, ints[:, 1], ints[:, 3], ints[:, 4], ints[:, 6]], dim=1)
     vals = torch.cat([fills, com_vals[:, 6:], ext_vals], dim=1)

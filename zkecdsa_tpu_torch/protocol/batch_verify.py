@@ -58,7 +58,7 @@ from ..ops.curve_ops import (
     tom_ops,
     war_ops,
 )
-from ..ops.field import TOM_N, bytes_le
+from ..ops.field import NLIMBS, TOM_N, bytes_le
 from ..ops.msm_bucket import bucket_bytes, bucket_fold, bucket_sums, pick_window, window_digits
 from ..parallel.mesh import from_first_rank, gather, shard_batch, sharded_gk_recombine
 from ..proofGK.gk import _pad, gk_statement_bind
@@ -240,7 +240,7 @@ def _combined_msm_identity(
 
     With a ``mesh`` the sub-rows (a multiple of lcm(4, dp)) are split over
     ``dp``; each rank sums its share, and the partial points are gathered
-    and folded with ``ec_add``, so every rank reaches the same verdict.
+    and folded with ``tree_sum``, so every rank reaches the same verdict.
     The r_i agree across ranks because the verify runs on a DRBG the ranks
     share (see :class:`BatchVerifier`)."""
     stage = stages(timer)
@@ -458,8 +458,9 @@ class BatchVerifier:
                 [(gk_x[i] - f_ints[i][j]) % t_ord for j in range(n)]
                 for i in range(N)
             ]
-            f_t = _pk_scalars(fo, [x for row in f_ints for x in row], device).reshape(N, n, -1)
-            xf_t = _pk_scalars(fo, [x for row in xf_ints for x in row], device).reshape(N, n, -1)
+            # (N, n, NLIMBS), not -1: a ring of one key has n = 0 index bits
+            f_t = _pk_scalars(fo, [x for row in f_ints for x in row], device).reshape(N, n, NLIMBS)
+            xf_t = _pk_scalars(fo, [x for row in xf_ints for x in row], device).reshape(N, n, NLIMBS)
             vals_t = _pk_scalars(fo, [v_.k for v_ in values_s], device)
             if _ring_sharded(mesh, RING) and n > 0:
                 tot_dev = gather(mesh, sharded_gk_recombine(mesh, f_t, xf_t, vals_t, dp_axis="dp"))
