@@ -9,7 +9,13 @@ Run from the repository root, on a machine with a card and ``nvcc``:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``zkecdsa_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the CUDA kernels from ``zkecdsa_tpu_torch/csrc`` (nvcc, sm_90a)
+   and, beside them, the host runtime ``libzkruntime.so`` from
+   ``zkecdsa_tpu_torch/runtime/native.cpp`` (g++), which must run
+   (``native.available()``); hold its ``sha256_rows``/``sha256_batch``
+   against ``hashlib`` on the prover's shapes (the DRBG's [blocks, 40]
+   counter rows of one instance's tapes, recorded; the challenge and
+   sub-proof rows) and a verify's message list, timed beside ``hashlib``;
 3. hold every kernel against its plain PyTorch version on the card, on the
    same inputs and exactly (integers: tolerance 0), at every shape the
    prover gives it and at the verifier's, and time both with CUDA events
@@ -60,15 +66,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    under ``torch.profiler`` (``utils.profiling.trace``): the device's busy
    share of its wall, and the device time of each launch of ``ec_add``,
    ``tree_sum``, ``window_table``, ``comb4_entries`` and ``chord`` in the
-   trace beside phase 3's CUDA-event times;
+   trace beside phase 3's CUDA-event times; then ``BatchProver.warmup(N)``
+   (timed; every kernel of the prove path launched in it) and one more
+   prove, whose launch counts and proof bytes must equal the timed rep's,
+   which ran unwarmed; the host stages that hash (``challenges.hash``,
+   ``subproof.hash``, ``tape.phase_a``, ``tape.phase_b``, ``gk.tape``)
+   beside their shares of a prove when the host layer hashed with
+   ``hashlib`` (``HASHLIB_STAGES``);
    phase 3 also holds the MSM backends' kernels (``bucket_sums``,
    ``bucket_fold``, ``msm_ladder``) against their plain versions, and
    ``straus_msm`` against them (the Straus-bucket crossover);
 4b. the verifier: ``BatchVerifier.verify`` on those 256 proofs, one
    warm-up and three timed reps, launch counts over the first; one more
-   verify traced as the prove was; then one proof's GK response is
-   tampered: exactly that position must fail (the per-row attribution
-   path);
+   verify traced as the prove was; ``verify.host_prep`` beside its share
+   of a verify with ``hashlib``; then one proof's GK response is tampered: exactly
+   that position must fail (the per-row attribution path);
 4c. path A: the same verify and tampered batch with
    ``Config.pippenger_min_t = 32``: the per-row MSMs take the bucket
    kernels (P-256 on the honest batch, both curves on the tampered one);
@@ -84,6 +96,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    host prover's under the same flags, in the worker processes), one
    verify (N x True), and the same batch with ``hardened_gk = 0`` (N x
    False); the default config is restored afterwards;
+4f. ``examples/usage_batched_torch.py`` in a subprocess on the card at
+   ``BATCH=4``: it must exit 0 (its verify asserts every proof True);
 5. the mesh path (``zkecdsa_tpu_torch.parallel``), on 4a's inputs and
    tapes, in ranks spawned by ``parallel.launch``; each rank builds its
    ``DeviceParams`` on the kernels (timed, launches counted), proves and
@@ -154,6 +168,25 @@ MESH_MSM_T = 8192  # phase 5c sharded_msm Tom-256 terms
 # path B's one-row MSMs of one proof: GK membership (4n + 4), the exp
 # relations on Tom-256 (a few hundred) and on P-256 (3 + 2 per round)
 SCALAR_MSM = (("tomEdwards256", 52), ("tomEdwards256", 380), ("p256", 43))
+# phase 2: sha256_rows [M, K] at the prover's rows: the challenge rows
+# (pkX, pkY, then A, Tx, Ty a round: 2*67 + 80*199 bytes), the phase-B
+# sub-proof rows (a mult proof's 9 points, an equality proof's 4, 67
+# bytes each) and the GK challenge rows (4n commitments, n = 12)
+HASH_ROWS = (("challenges.hash", 256, 134 + 80 * 199), ("subproof.hash, mult", 10240, 9 * 67),
+             ("subproof.hash, equality", 10240, 4 * 67), ("GK challenge", 256, 48 * 67))
+# sha256_batch: a verify's challenge messages (verify.host_prep)
+HASH_BATCH = ("verify.host_prep", 256, 134 + 80 * 199)
+# The last run of this script before the host layer hashed on the C++
+# runtime, when it hashed with hashlib (NVIDIA H100 80GB HBM3, 700.00 W):
+# the median wall and the hashing and tape stages' shares of the stages'
+# seconds (None where the report did not keep the stage)
+HASHLIB_STAGES = {
+    "prove": (5.780, {"challenges.hash": None, "subproof.hash": 3.8, "tape.phase_a": 3.3,
+                      "tape.phase_b": 24.9, "gk.tape": None}),
+    "verify": (4.733, {"verify.host_prep": 20.9}),
+}
+EXAMPLE_BATCH = 4  # phase 4f: examples/usage_batched_torch.py's BATCH
+EXAMPLE_TIMEOUT = 300  # seconds
 COMB_W, COMB_E = 32, 256  # comb tables: 8-bit windows, multiples a window
 K_HARD = 2  # phase 4e: proofs also made by the host prover with both flags on
 
@@ -301,6 +334,81 @@ def _host_verify(job):
     with rng.deterministic(seed):
         ok = verify_signature_list(params, mh, ring, proof)
     return ok, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the host runtime against hashlib
+# ---------------------------------------------------------------------------
+
+
+def _best_ms(fn, reps: int = 3) -> float:
+    """The least host wall time of ``reps`` calls, in ms."""
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def check_runtime(rs, log) -> list:
+    """``libzkruntime.so`` runs, and its digests equal ``hashlib``'s on
+    the DRBG's counter rows of one instance's tapes (recorded while the
+    tapes are drawn as the prover draws them), on ``HASH_ROWS`` and on
+    ``HASH_BATCH``'s messages; each timed beside ``hashlib``.  Raises on
+    any difference."""
+    import numpy as np
+
+    from zkecdsa_tpu_torch.bignum import big
+    from zkecdsa_tpu_torch.curves.instances import p256, tomEdwards256
+    from zkecdsa_tpu_torch.runtime import native
+    from zkecdsa_tpu_torch.utils import rng
+
+    if not native.available():
+        raise AssertionError(f"libzkruntime.so does not run: {native.error()}")
+    drbg, rows = [], native.sha256_rows
+
+    def record(a, threads=None):
+        drbg.append(np.array(a, dtype=np.uint8))
+        return rows(a, threads)
+
+    native.sha256_rows = record
+    try:  # phase A's draws, then phase B's for 40 even rounds
+        src = rng.DeterministicSource(SEED + 100)
+        n_ord, t_ord = p256.order, tomEdwards256.order
+        big.rnd_many([n_ord, t_ord, t_ord] + [n_ord, n_ord, t_ord, t_ord] * ROUNDS, src)
+        big.rnd_many([t_ord] * (40 * 40), src)
+    finally:
+        native.sha256_rows = rows
+    cases = [(f"DRBG tape draw {i}", a) for i, a in enumerate(drbg)]
+    cases += [(what, rs.randint(0, 256, (M, K)).astype(np.uint8)) for what, M, K in HASH_ROWS]
+    recs = []
+    for what, a in cases:
+        got = native.sha256_rows(a)
+        if [r.tobytes() for r in got] != [hashlib.sha256(r.tobytes()).digest() for r in a]:
+            raise AssertionError(f"sha256_rows {list(a.shape)} ({what}) differs from hashlib")
+        recs.append(dict(fn="sha256_rows", call=what, shape=list(a.shape),
+                         ms=_best_ms(lambda: native.sha256_rows(a)),
+                         ms_1_thread=_best_ms(lambda: native.sha256_rows(a, threads=1)),
+                         hashlib_ms=_best_ms(lambda: [hashlib.sha256(r.tobytes()).digest() for r in a])))
+    what, M, K = HASH_BATCH
+    msgs = [rs.randint(0, 256, K - i % 3).astype(np.uint8).tobytes() for i in range(M)] + [b""]
+    if native.sha256_batch(msgs) != [hashlib.sha256(m).digest() for m in msgs]:
+        raise AssertionError(f"sha256_batch ({what}) differs from hashlib")
+    recs.append(dict(fn="sha256_batch", call=what, shape=[len(msgs), K],
+                     ms=_best_ms(lambda: native.sha256_batch(msgs)),
+                     ms_1_thread=_best_ms(lambda: native.sha256_batch(msgs, threads=1)),
+                     hashlib_ms=_best_ms(lambda: [hashlib.sha256(m).digest() for m in msgs])))
+    threads = min(os.cpu_count() or 1, 16)
+    with open("/proc/cpuinfo") as f:
+        sha_ni = "sha_ni" in f.read().split()
+    log(f"runtime: the host CPU {'has' if sha_ni else 'lacks'} the SHA extensions (sha_ni); "
+        f"up to {threads} threads, one for each MiB of input (native.cpp)")
+    for r in recs:
+        log(f"runtime: {r['fn']} {r['shape']} ({r['call']}): {r['ms']:.3f} ms (one thread {r['ms_1_thread']:.3f}), "
+            f"hashlib {r['hashlib_ms']:.3f} ms, exact")
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1492,6 +1600,23 @@ def _trace_run(what, run, check, shapes, path, per, log) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _stage_shares(path: str, timer, log) -> dict:
+    """The hashing and tape stages of ``path`` (``HASHLIB_STAGES``):
+    seconds a run (the timed reps' mean) and share of the stages' seconds,
+    beside the share with hashlib and what it came to on that run's
+    median wall."""
+    wall0, shares0 = HASHLIB_STAGES[path]
+    total = sum(timer.stages.values())
+    out = {}
+    for name, share0 in shares0.items():
+        secs = timer.stages.get(name, 0.0) / REPS
+        share = 100 * timer.stages.get(name, 0.0) / total
+        out[name] = dict(s=secs, share=share, hashlib_share=share0)
+        before = "not kept" if share0 is None else f"{share0:.1f}% (~{share0 * wall0 / 100:.3f} s)"
+        log(f"stage {name}: {secs:.4f} s a {path}, {share:.2f}% of its stages; with hashlib: {before}")
+    return out
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1517,6 +1642,7 @@ def main() -> int:
     from zkecdsa_tpu_torch.protocol.batch import BatchProver, _device_params_cached, device_params_for
     from zkecdsa_tpu_torch.protocol.batch_verify import BatchVerifier
     from zkecdsa_tpu_torch.protocol.verify import device_msm_backend
+    from zkecdsa_tpu_torch.runtime import native
     from zkecdsa_tpu_torch.serde import read_json, write_json
     from zkecdsa_tpu_torch.utils import rng
     from zkecdsa_tpu_torch.utils.config import get_config, set_config
@@ -1542,10 +1668,12 @@ def main() -> int:
     probe_builds = [threading.Thread(target=m.build) for m in (torch_chord_probe, torch_ec_add_sweep)]
     for t in probe_builds:
         t.start()
+    log(f"build: {native.build():.2f} s (g++, {native.LIB_PATH.name})")
     log(f"build: {_build.build():.1f} s (nvcc, sm_90a, {_build.LIB_PATH.name})")
     _build.load()
     for t in probe_builds:
         t.join()
+    runtime_recs = check_runtime(np.random.RandomState(SEED + 5), log)
 
     # -- inputs, made from the seed: N signers whose keys open the ring;
     #    the host prover starts on proofs 0..K-1 in worker processes while
@@ -1716,6 +1844,29 @@ def main() -> int:
         if launches_prove["field_mul"] != 0 or launches_prove["ring_fold"] != 1:
             raise AssertionError(f"a prove should make 1 ring_fold and 0 field_mul launches: {launches_prove}")
         traced = _trace_run("prove", prove, check_proofs, shapes, prove_path, "launches_per_prove", log)
+        hash_stages = _stage_shares("prove", ptimer, log)
+
+        # BatchProver.warmup(N): every kernel of the prove path launched
+        # once, no randomness drawn; the prove after it launches as the
+        # unwarmed timed rep did and gives its bytes
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bp.warmup(N, ring=RING)
+        warmup_s = time.perf_counter() - t0
+        launches_warmup = read_counts()
+        missing = [k for k in prove_path if launches_warmup[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by BatchProver.warmup: {missing}")
+        zero_counts()
+        check_proofs(prove(None))
+        torch.cuda.synchronize()
+        launches_after = read_counts()
+        if launches_after != launches_prove:
+            raise AssertionError(f"the prove after warmup launched {launches_after}, the unwarmed one {launches_prove}")
+        log(f"BatchProver.warmup({N}, e=(56, 64), ring={RING}): {warmup_s:.3f} s (after phase 3: the kernels "
+            f"loaded), launches " + json.dumps({k: launches_warmup[k] for k in prove_path})
+            + f"; the prove after it: the unwarmed rep's launches and proof bytes; on {smi}")
 
         # -- phase 4b: the verifier on the N distinct proofs ------------------
         bv = BatchVerifier(params, dev)
@@ -1745,6 +1896,7 @@ def main() -> int:
             )
         vtraced = _trace_run("verify", lambda timer: bv.verify(mhs, ring, proofs, timer=timer), check_verdicts,
                              shapes, verify_path, "launches_per_verify", log)
+        hash_stages.update(_stage_shares("verify", vtimer, log))
         both = prove_wall + verify_wall
         log(f"prove+verify: {both:.3f} s per batch of {N} -> {N / both:.2f} proofs/s on {smi}")
 
@@ -1896,6 +2048,20 @@ def main() -> int:
         f"0..{K_HARD - 1} equal the hardened host prover's byte for byte; verify {verify_h_s:.3f} s "
         f"({N / verify_h_s:.2f} proofs/s), {N} x True; with hardened_gk = 0 {N} x False; on {smi}")
 
+    # -- phase 4f: the batched example on the card, in a subprocess -------
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    ex = subprocess.run(
+        [sys.executable, os.path.join(here, "examples", "usage_batched_torch.py")], cwd=here,
+        env=dict(os.environ, BATCH=str(EXAMPLE_BATCH), DEVICE=DEVICE, PYTHONPATH=here), capture_output=True, text=True,
+        timeout=EXAMPLE_TIMEOUT,
+    )
+    example_s = time.perf_counter() - t0
+    if ex.returncode != 0:
+        raise AssertionError(f"examples/usage_batched_torch.py failed ({ex.returncode}):\n{ex.stderr[-3000:]}")
+    log(f"4f examples/usage_batched_torch.py, BATCH={EXAMPLE_BATCH}: exit 0 in {example_s:.1f} s with the "
+        f"interpreter's start:\n" + ex.stdout.rstrip())
+
     # -- phase 5: the mesh path, in spawned ranks (5a NCCL on one rank, 5b
     #    four gloo ranks sharing the card, with 5c in them) ------------------
     from zkecdsa_tpu_torch.parallel import launch
@@ -1996,6 +2162,8 @@ def main() -> int:
         "crossover": crossover,
         "prove_stages": ptimer.stages, "verify_stages": vtimer.stages, "prove_trace": traced, "verify_trace": vtraced,
         "bucket_verify_stages": btimer.stages,
+        "runtime_hash": runtime_recs, "hash_stages": hash_stages, "warmup_s": warmup_s,
+        "example_s": example_s,
         "mesh": {run: [{k: v for k, v in r.items() if not k.startswith("launches")} for r in reports]
                  for run, reports in mesh_runs.items()},
     }))

@@ -33,15 +33,24 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# The mesh modules and the entry points, a tiny verify (4 exp rounds, 2
-# checked, ring of 2) on the Straus and on
+# The examples, the benchmark entry points, the security gate, the native
+# runtime (loaded), the mesh modules and the entry points, a tiny verify (4
+# exp rounds, 2 checked, ring of 2) on the Straus and on
 # the bucket backend, the scalar verifier on the device MSM backend (20
 # rounds, the count it checks), and a tiny batched prove (one proof, ring
 # of 2) in a fresh interpreter, then the list of every loaded module that
 # belongs to JAX or the JAX package.
 _PROBE = r"""
-import dataclasses, hashlib, sys
+import dataclasses, hashlib, importlib.util, sys
 import chip_smoke  # noqa: F401  the chip script's own imports
+# the examples, the benchmark entry points and the security gate, loaded
+# as modules (their main() not run)
+for path in ("examples/usage_torch.py", "examples/usage_batched_torch.py", "bench_cuda.py",
+             "bench_components_torch.py", "tools/seccheck_torch.py"):
+    spec = importlib.util.spec_from_file_location(path.replace("/", "_")[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from zkecdsa_tpu_torch.runtime import native
+native.available()  # builds or loads libzkruntime.so
 import zkecdsa_tpu_torch.entry  # noqa: F401
 import zkecdsa_tpu_torch.parallel  # noqa: F401
 import zkecdsa_tpu_torch.parallel.launch  # noqa: F401

@@ -1,6 +1,6 @@
 """Rank functions of the mesh tests (tests/test_torch_mesh.py,
-tests/test_torch_mesh_pipeline.py, and one ``cuda`` test of
-tests/test_torch_kernels.py), run by ``zkecdsa_tpu_torch.parallel.launch``
+tests/test_torch_mesh_pipeline.py, tests/test_torch_warmup.py, and one
+``cuda`` test of tests/test_torch_kernels.py), run by ``zkecdsa_tpu_torch.parallel.launch``
 in spawned processes.  This module imports PyTorch and the port only, so
 that a rank never loads JAX; each returns plain Python values."""
 
@@ -109,3 +109,25 @@ def second_raises(rank: int, world: int) -> str:
         raise ValueError("rank 1 fails on purpose")
     tmesh.gather(mesh, torch.zeros(1))
     return "gathered"
+
+
+def warmup_spy(rank: int, world: int, params_json: str, n: int, e: tuple, ring: int) -> dict:
+    """``BatchProver.warmup`` on a ``world`` x 1 mesh (gloo, the CPU) with
+    spies on ``phase_b`` and ``phase_b_flat``: the calls it made, as
+    (name, shape of the last argument)."""
+    torch.set_num_threads(1)
+    from zkecdsa_tpu_torch.protocol import batch
+    from zkecdsa_tpu_torch.serde import read_json
+    from zkecdsa_tpu_torch.zkp_attest_list import SystemParametersList
+
+    mesh = tmesh.make_mesh_2d(world, 1, device="cpu", backend="gloo")
+    bp = batch.BatchProver(read_json(SystemParametersList, params_json), mesh=mesh)
+    calls = []
+    for name in ("phase_b", "phase_b_flat"):
+        def spy(*args, _fn=getattr(batch, name), _name=name):
+            calls.append((_name, tuple(args[-1].shape)))
+            return _fn(*args)
+
+        setattr(batch, name, spy)  # this rank's process ends with the call
+    bp.warmup(n, e, ring=ring)
+    return {"calls": calls}

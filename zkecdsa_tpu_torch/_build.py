@@ -103,11 +103,12 @@ def _stale() -> bool:
 
 
 @contextlib.contextmanager
-def build_lock():
-    """Hold the build directory's lock file (``fcntl.flock``, exclusive)
-    for the duration: one process at a time checks and builds."""
+def build_lock(name: str = LOCK_NAME):
+    """Hold the lock file ``name`` in the build directory (``fcntl.flock``,
+    exclusive) for the duration: one process at a time checks and builds
+    what that lock covers."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd = os.open(BUILD_DIR / LOCK_NAME, os.O_RDWR | os.O_CREAT, 0o644)
+    fd = os.open(BUILD_DIR / name, os.O_RDWR | os.O_CREAT, 0o644)
     try:
         fcntl.flock(fd, fcntl.LOCK_EX)
         yield

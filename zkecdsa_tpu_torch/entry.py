@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import ecdsa
+from .bignum import big
 from .curves.instances import tomEdwards256
 from .ops.curve_ops import nibble_digits, tom_ops
 from .ops.field import TOM_N
@@ -42,6 +43,11 @@ def _params():
         return generate_params_list()
 
 
+# The forward step's 8 values: numpy.random.RandomState(0).randint(1, 2**30)
+# drawn 8 times, the integers of ``__graft_entry__.entry``, written out.
+_ENTRY_INTS = (209652397, 398764592, 924231286, 404868289, 441365316, 463622908, 192771780, 417693032)
+
+
 def entry(device=None):
     """(forward, (vals, blinds)): ``forward`` commits 8 canonical values
     under 8 blindings on ``device`` (CUDA unless the caller names
@@ -51,9 +57,7 @@ def entry(device=None):
     def forward(vals, blinds):
         return dev.commit_tom(vals, blinds)
 
-    rs = np.random.RandomState(0)
-    ints = [int(rs.randint(1, 1 << 30)) for _ in range(8)]
-    return forward, (TOM_N.pack(ints, dev.device), TOM_N.pack(ints[::-1], dev.device))
+    return forward, (TOM_N.pack(_ENTRY_INTS, dev.device), TOM_N.pack(_ENTRY_INTS[::-1], dev.device))
 
 
 def _mesh_dims(n_devices: int) -> tuple[int, int]:
@@ -106,10 +110,11 @@ def _dryrun_rank(rank: int, world: int, device, backend: str) -> dict:
     _check(bad == [False] + [True] * (dp - 1), f"tampered message 0: {bad}")
 
     # ---- ring-axis routines, against host arithmetic ----
-    rs = np.random.RandomState(1)
     RING, n_bits = 4 * ringsz, 3
-    f_ints = [int(rs.randint(1, 1 << 30)) for _ in range(RING * n_bits)]
-    v_ints = [int(rs.randint(1, 1 << 30)) for _ in range(RING)]
+    with rng.deterministic(1):  # the same integers on every rank
+        f_ints = [big.rnd_range(1, (1 << 30) - 1) for _ in range(RING * n_bits)]
+        v_ints = [big.rnd_range(1, (1 << 30) - 1) for _ in range(RING)]
+        msm_sc = [big.rnd_range(1, (1 << 30) - 1) for _ in range(RING)]
     total = sharded_gk_total(mesh, TOM_N.pack(f_ints).reshape(RING, n_bits, -1), TOM_N.pack(v_ints))
     want = 0
     for i in range(RING):
@@ -120,7 +125,6 @@ def _dryrun_rank(rank: int, world: int, device, backend: str) -> dict:
     _check(TOM_N.unpack(total) == [want], "sharded GK total mismatch")
     g = tomEdwards256
     host_pts = [g.generator().mul(g.new_scalar(k + 1)) for k in range(RING)]
-    msm_sc = [int(rs.randint(1, 1 << 30)) for _ in range(RING)]
     got = sharded_msm(
         mesh, tom_ops, tom_ops.pack_points(host_pts),
         torch.from_numpy(nibble_digits(msm_sc).astype(np.uint8)),

@@ -75,8 +75,8 @@ from ..ops.curve_ops import (
     tom_ops,
     window_table,
 )
-from ..ops.field import P256_N, TOM_N, FieldT, bytes_le
-from ..parallel.mesh import gather, shard_batch
+from ..ops.field import NLIMBS, P256_N, TOM_N, FieldT, bytes_le
+from ..parallel.mesh import gather, shard_batch, sharded_gk_dvalues
 from ..utils import rng
 from ..utils.profiling import stages
 from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
@@ -412,6 +412,17 @@ _SLOT = {
 NSLOT = BK + 13  # commit stack + C4s + A42s + 5 combos
 
 
+def _flat_rows(k_real: int) -> int:
+    """The flat phase-B row count for ``k_real`` even rounds: a multiple
+    of 64 up to 512 rows, of 512 beyond, and at least one quantum."""
+    quantum = 64 if k_real <= 512 else 512
+    return max(quantum, -(-k_real // quantum) * quantum)
+
+
+# odd 256-bit multiplier of the warm-up's fixed inputs
+_WARM_MUL = 0x9E3779B97F4A7C15F39CC0605CEDC8341082276BF3A27251F86C6A11D0C18E95
+
+
 class _Tape:
     """Per-instance randomness drawn in exactly the reference's order."""
 
@@ -470,6 +481,73 @@ class BatchProver:
         self.params = params
         self.dev = device_params_for(params, self.device)
         self.tabs = self.dev.tabs()
+
+    def warmup(self, n: int, e: int | Sequence[int] = (56, 64), ring: int = 4096) -> None:
+        """Launch each kernel of a prove once, at the shapes a batch of
+        ``n`` instances over a ring of ``ring`` keys gives, on fixed inputs
+        (reference ``protocol/batch.py:612``, which compiles the phase
+        programs).  Phase B runs once for each even-round capacity in
+        ``e``, on the path a prove takes: without a mesh
+        :func:`phase_b_flat` over K = n*e rows (quantized as a prove
+        quantizes them), with one :func:`phase_b` on this rank's [n/dp, e]
+        block.  The GK d-values and commitments run at the batch's ring.
+
+        It draws no randomness (the inputs are a fixed pattern, never the
+        ``utils.rng`` source), so a prove after it gives the same bytes as
+        one without it.  The kernel library and ``libzkruntime.so`` load
+        first; ``DeviceParams`` was built by the constructor.  On the CPU
+        it runs the plain versions at the same shapes."""
+        from ..runtime import native
+        from .batch_gk import _gk_commit_device, _ring_len, _ring_sharded, gk_dvalues_device
+
+        if self.device.type == "cuda":
+            from .. import _build
+
+            _build.load()
+        native.available()
+        mesh, device = self.mesh, self.device
+        N = len(shard_batch(mesh, range(n)))  # this rank's instances
+        fn, fo = P256_N, TOM_N
+
+        def fixed(ctx, *shape):
+            """[*shape, 9] canonical values: a fixed pattern of 257."""
+            base = _pk_scalars(ctx, [(k + 1) * _WARM_MUL for k in range(257)], device)
+            return base[torch.arange(int(np.prod(shape)), device=device) % 257].reshape(*shape, NLIMBS)
+
+        pk = p256_ops.pack_points([p256.generator()] * N, device)
+        pkx_v, pky_v, pky_r, txr = fixed(fo, N), fixed(fo, N), fixed(fo, N), fixed(fo, N, SECPARAM)
+        a = phase_a(
+            self.tabs, pk, *(fixed(fn, N) for _ in range(5)), pkx_v, fixed(fo, N), pky_v, pky_r,
+            fixed(fn, N, SECPARAM), fixed(fn, N, SECPARAM), txr, fixed(fo, N, SECPARAM),
+        )
+        b_args = (self.tabs, a["T"], a["D"], a["TC"][:, :, 0], a["TC"][:, :, 1],
+                  a["pkC"][:, 0], a["pkC"][:, 1], a["Tx_v"], pkx_v, pky_v, pky_r, txr)
+        for ev in (e if isinstance(e, (tuple, list)) else (e,)):
+            if mesh is None:
+                K = _flat_rows(N * ev)
+                srcid = torch.arange(K, device=device) % (N * SECPARAM)
+                phase_b_flat(*b_args, fixed(fo, K, BK), fixed(fo, K, BK), srcid)
+            else:
+                eidx = (torch.arange(ev, device=device) % SECPARAM).expand(N, ev)
+                phase_b(*b_args, fixed(fo, N, ev, BK), fixed(fo, N, ev, BK), eidx)
+        RING, nbits = _ring_len(ring)
+        if nbits:
+            vals = [(k + 1) * _WARM_MUL % fo.p for k in range(RING)]
+            eli = [[(i >> j) & 1 for j in range(nbits)] for i in range(n)]  # instance i proves key i % RING
+            ai = [[(i * nbits + j + 1) * _WARM_MUL % fo.p for j in range(nbits)] for i in range(n)]
+            vidx = [vals[i % RING] for i in range(n)]
+            if _ring_sharded(mesh, RING):
+                sharded_gk_dvalues(
+                    mesh, torch.tensor(eli, dtype=torch.int32),
+                    fo.pack([v for row in ai for v in row]).reshape(n, nbits, -1),
+                    fo.pack(vals), fo.pack(vidx), dp_axis="dp",
+                )
+            else:
+                gk_dvalues_device(shard_batch(mesh, eli), shard_batch(mesh, ai), vals,
+                                  shard_batch(mesh, vidx), device)
+            _gk_commit_device(self.tabs, fixed(fo, N * 4 * nbits), fixed(fo, N * 4 * nbits))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def prove(
         self,
@@ -687,8 +765,7 @@ class BatchProver:
             if flat:
                 if not pairs:
                     pairs = [(0, 0)]
-                quantum = 64 if K_real <= 512 else 512
-                K = max(quantum, -(-K_real // quantum) * quantum)
+                K = _flat_rows(K_real)
                 pairs_p = pairs + [pairs[-1]] * (K - len(pairs))
                 srcid = torch.tensor([i * SECPARAM + j for i, j in pairs_p], dtype=torch.int64,
                                      device=device)
