@@ -75,7 +75,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``hashlib`` (``HASHLIB_STAGES``);
    phase 3 also holds the MSM backends' kernels (``bucket_sums``,
    ``bucket_fold``, ``msm_ladder``) against their plain versions, and
-   ``straus_msm`` against them (the Straus-bucket crossover);
+   ``straus_msm`` against them (the Straus-bucket crossover); the bucket
+   kernels on ``bucket_plan``'s geometry and on each form it did not
+   take (forced), and on the skewed and empty cases (``BUCKET_EDGE``);
 4b. the verifier: ``BatchVerifier.verify`` on those 256 proofs, one
    warm-up and three timed reps, launch counts over the first; one more
    verify traced as the prove was; ``verify.host_prep`` beside its share
@@ -155,6 +157,11 @@ PIPPENGER_MIN_T = 32  # path A: sends both per-row MSMs of the batch to the buck
 # (756 -> 760) and the combined Tom-256 width
 BUCKET = (("p256", 256, 48, 5, 256), ("tomEdwards256", 256, 760, 5, 8),
           ("tomEdwards256", 16, 8192, 6, 2))
+# the bucket kernels' skewed and empty cases (curve, R, T, window, rows of
+# the plain versions): every term of a row in one bucket, only the top
+# window's digits nonzero, every scalar zero
+BUCKET_EDGE = (("p256", 64, 48, 5, 16), ("tomEdwards256", 4, 8192, 6, 2))
+BUCKET_EDGE_CASES = ("one_bucket", "top_window", "empty")
 LADDER = (4, 1024)  # msm_ladder [R, T] on both curves
 # field_sum [D, R] at the mesh path's calls: the prover's d-values (2 ring
 # ranks, N_l * n = 128 * 12), the verifier's recombination, and
@@ -1187,8 +1194,11 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
     from zkecdsa_tpu_torch.ops.msm_bucket import (
         bucket_fold,
         bucket_fold_plain,
+        bucket_plan,
         bucket_sums,
         bucket_sums_plain,
+        bucket_teams,
+        fold_rounds,
         msm_bucket_rows,
         n_windows,
         window_digits,
@@ -1210,6 +1220,32 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
         flat = [s for row in scs for s in row]
         return torch.from_numpy(nibble_digits(flat).astype(np.uint8).reshape(R, T, 64)).to(dev)
 
+    def other_geometries(call, ops, plan, B, P, dig, w, rows, S_plain):
+        """Each bucket_plan form the plan did not take, forced and held
+        against the plain versions: the other lanes of bucket_sums (up to
+        64 buckets), bucket_fold at 1, 2, 3 and twice the plan's segments
+        (up to min(32, B - 1)), and at the other of one and two windows a
+        team.  Returns ({form: ms}, err)."""
+        ms, err = {}, 0
+        if B <= 64:
+            lanes = 5 - plan.lanes
+            S2 = bucket_sums(ops, P, dig, w, lanes=lanes)
+            err = max(err, _affine_exact(f"bucket_sums {call} lanes={lanes}", ops, S2[:rows], S_plain))
+            ms[f"sums_lanes{lanes}"] = _cuda_ms(lambda: bucket_sums(ops, P, dig, w, lanes=lanes), 3)
+        S = bucket_sums(ops, P, dig, w)
+        want = bucket_fold_plain(ops, S[:rows], w)
+        for segs in sorted({1, 2, 3, 2 * plan.segs} - {plan.segs}):
+            if segs > min(32, B - 1):
+                continue
+            got = bucket_fold(ops, S, w, segs=segs, wpt=1)
+            err = max(err, _affine_exact(f"bucket_fold {call} segs={segs}", ops, got[:rows], want))
+            ms[f"fold_segs{segs}"] = _cuda_ms(lambda: bucket_fold(ops, S, w, segs=segs, wpt=1), 3)
+        wpt = 3 - plan.wpt if plan.wpt <= 2 else 1
+        got = bucket_fold(ops, S, w, segs=plan.segs, wpt=wpt)
+        err = max(err, _affine_exact(f"bucket_fold {call} wpt={wpt}", ops, got[:rows], want))
+        ms[f"fold_wpt{wpt}"] = _cuda_ms(lambda: bucket_fold(ops, S, w, segs=plan.segs, wpt=wpt), 3)
+        return ms, err
+
     # -- the bucket kernels at path A's per-row shapes and the combined
     #    width; the plain bucket sums run on the first `rows` rows --------
     for name, R, T, w, rows in BUCKET:
@@ -1218,30 +1254,47 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
         P, scs = _msm_inputs(ops, g, R, T, rs, dev)
         dig = torch.from_numpy(window_digits(scs, T, w)).to(dev)
         call = f"{name} [{R}, {T}] w={w}"
+        plan = bucket_plan(ops, R, w, bucket_teams(ops, dev))
         S = bucket_sums(ops, P, dig, w)
         plain, plain_ms = _once_ms(lambda: bucket_sums_plain(ops, P[:rows], dig[:rows], w))
         err = _affine_exact(f"bucket_sums {call}", ops, S[:rows], plain)
         ms = _cuda_ms(lambda: bucket_sums(ops, P, dig, w), 5)
         nnz = int((dig != 0).sum())
+        # each nonempty bucket starts from its first term: the adds are the
+        # nonzero digits less the nonempty buckets of nonzero digits
+        flat = dig.reshape(R * D, T).long()
+        counts = torch.zeros((R * D, B), dtype=torch.int64, device=dev).scatter_add_(1, flat, torch.ones_like(flat))
+        nonempty = int((counts[:, 1:] > 0).sum())
+        sums_bytes = R * T * C * pb + dig.numel() + R * D * B * C * pb
+        bound = _no_looser(f"bucket_sums {call}", _bound(mm_add * (nnz - nonempty), sums_bytes),
+                           _bound(mm_add * nnz, sums_bytes))
         # the tail: the top window holds 256 - (D-1)*w real bits, so few
         # buckets take many terms; time the call without it
         top = int(torch.bincount(dig[0, 0].long(), minlength=B)[1:].max())
         rest = dig.clone()
         rest[:, 0] = 0
         ms_rest = _cuda_ms(lambda: bucket_sums(ops, P, rest, w), 5)
-        record("bucket_sums", call, err, ms, plain_ms,
-               _bound(mm_add * nnz, R * T * C * pb + dig.numel() + R * D * B * C * pb),
-               plain_rows=rows, ms_top_window_zeroed=ms_rest)
-        log(f"bucket_sums {call}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms on [{rows}, {T}], exact "
-            f"(affine); {nnz} nonzero digits; {top} terms in row 0's largest top-window bucket; "
-            f"{ms_rest:.4f} ms with the top window's digits zeroed")
+        forms, err_forms = other_geometries(call, ops, plan, B, P, dig, w, rows, plain)
+        record("bucket_sums", call, max(err, err_forms), ms, plain_ms, bound, plain_rows=rows,
+               ms_top_window_zeroed=ms_rest, plan=dataclasses.asdict(plan),
+               forced_ms={k: v for k, v in forms.items() if k.startswith("sums")})
+        log(f"bucket_sums {call}: kernel {ms:.4f} ms ({plan.lanes} lane(s) a bucket), plain {plain_ms:.1f} ms "
+            f"on [{rows}, {T}], exact (affine); {nnz} nonzero digits in {nonempty} nonempty buckets; {top} "
+            f"terms in row 0's largest top-window bucket; {ms_rest:.4f} ms with the top window's digits "
+            f"zeroed; forced: " + json.dumps({k: round(v, 4) for k, v in forms.items() if k.startswith("sums")}))
         out = bucket_fold(ops, S, w)
         plain, plain_ms = _once_ms(lambda: bucket_fold_plain(ops, S, w))
         err = _affine_exact(f"bucket_fold {call}", ops, out, plain)
         ms_fold = _cuda_ms(lambda: bucket_fold(ops, S, w), 5)
-        record("bucket_fold", call, err, ms_fold, plain_ms,
-               _bound(R * D * (2 * (B - 1) * mm_add + w * mm_dbl + mm_add), R * D * B * C * pb + R * C * pb))
-        log(f"bucket_fold {call}: kernel {ms_fold:.4f} ms, plain {plain_ms:.1f} ms, exact (affine)")
+        rounds = fold_rounds(ops, w, plan)
+        record("bucket_fold", call, max(err, err_forms), ms_fold, plain_ms,
+               _bound(R * D * (2 * (B - 1) * mm_add + w * mm_dbl + mm_add), R * D * B * C * pb + R * C * pb),
+               plan=dataclasses.asdict(plan), chain_team_rounds=rounds,
+               forced_ms={k: v for k, v in forms.items() if k.startswith("fold")})
+        log(f"bucket_fold {call}: kernel {ms_fold:.4f} ms ({plan.segs} segment(s) a window, {plan.wpt} "
+            f"window(s) a team, {plan.groups} Horner groups, a chain of {rounds} team rounds), plain "
+            f"{plain_ms:.1f} ms, exact (affine); "
+            f"forced: " + json.dumps({k: round(v, 4) for k, v in forms.items() if k.startswith("fold")}))
         # the two kernels together against the Straus kernel, every row
         nib = nibbles(scs, R, T)
         _affine_exact(f"bucket vs straus_msm {call}", ops, out, straus_msm(ops, P, nib))
@@ -1252,6 +1305,42 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
         crossover.append(dict(call=call, straus_ms=ms_straus, bucket_ms=ms_bucket))
         log(f"crossover {call}: straus_msm {ms_straus:.3f} ms, bucket_sums + bucket_fold "
             f"{ms_bucket:.3f} ms -> {'bucket' if ms_bucket < ms_straus else 'straus'} faster")
+
+    # -- the skewed and empty cases, on the plan's and the forced geometries
+    for name, R, T, w, rows in BUCKET_EDGE:
+        ops, g, _, _ = curves[name]
+        D, B = n_windows(w), 1 << w
+        P, scs = _msm_inputs(ops, g, R, T, rs, dev)
+        plan = bucket_plan(ops, R, w, bucket_teams(ops, dev))
+        for case in BUCKET_EDGE_CASES:
+            if case == "one_bucket":
+                rows_s = [[row[5]] * T for row in scs]
+            elif case == "top_window":
+                tb = 256 - (D - 1) * w
+                rows_s = [[(s >> (256 - tb)) << ((D - 1) * w) for s in row] for row in scs]
+            else:
+                rows_s = [[0] * T for _ in scs]
+            dig = torch.from_numpy(window_digits(rows_s, T, w)).to(dev)
+            call = f"{name} [{R}, {T}] w={w} {case}"
+            S = bucket_sums(ops, P, dig, w)
+            S_plain = bucket_sums_plain(ops, P[:rows], dig[:rows], w)
+            err = _affine_exact(f"bucket_sums {call}", ops, S[:rows], S_plain)
+            out = bucket_fold(ops, S, w)
+            err = max(err, _affine_exact(f"bucket_fold {call}", ops, out[:rows],
+                                         bucket_fold_plain(ops, S[:rows], w)))
+            _affine_exact(f"bucket vs straus_msm {call}", ops, out, straus_msm(ops, P, nibbles(rows_s, R, T)))
+            if case == "empty" and not bool(ops.is_identity(out).all()):
+                raise AssertionError(f"bucket kernels {call}: an all-zero row is not the identity")
+            forms, err_forms = other_geometries(call, ops, plan, B, P, dig, w, rows, S_plain)
+            ms = _cuda_ms(lambda: bucket_sums(ops, P, dig, w), 3)
+            ms_fold = _cuda_ms(lambda: bucket_fold(ops, S, w), 3)
+            # the records ride on the first bucket_sums shape (no kernel of their own)
+            shapes["bucket_sums"][0].setdefault("edge_cases", []).append(dict(
+                call=call, max_abs_err=max(err, err_forms), sums_ms=ms, fold_ms=ms_fold,
+                plan=dataclasses.asdict(plan), forced_ms=forms))
+            log(f"bucket kernels {call}: exact (affine) on the plan's and the forced geometries; sums "
+                f"{ms:.4f} ms, fold {ms_fold:.4f} ms; forced: "
+                + json.dumps({k: round(v, 4) for k, v in forms.items()}))
 
     # -- msm_ladder on both curves, held against its plain version (the
     #    same order: exact) and against straus_msm (as group elements) ----

@@ -842,27 +842,79 @@ def _msm_rows(g, rs, N, T):
     return pts, scs
 
 
+def _bucket_case(g, rs, case, window):
+    """(points, scalar rows) of one bucket-kernel case; points cycle
+    through a pool of 16 host points (the large cases stay quick)."""
+    from zkecdsa_tpu_torch.ops import msm_bucket as tmb
+
+    N, T = {"random": (3, 200), "one_bucket": (2, 100), "top_window": (2, 96), "one_term": (3, 1),
+            "ragged": (5, 37), "identity": (2, 40), "window7": (1, 8193)}[case]
+    G = g.generator()
+    pool = [G.mul(g.new_scalar(_scalar(g, rs))) for _ in range(16)]
+    pts = [pool[rs.randint(16)] for _ in range(N * T)]
+    scs = [[_scalar(g, rs) for _ in range(T)] for _ in range(N)]
+    D = tmb.n_windows(window)
+    if case == "random":
+        for i in range(N):
+            scs[i][:4] = [0, 1, g.order - 1, scs[i][4 % T]]
+            pts[i * T + T - 1], scs[i][T - 1] = g.identity(), 0
+        scs[2] = [0] * T  # a row of padding: every bucket empty
+    elif case == "one_bucket":  # every term of a window in one bucket
+        scs = [[scs[i][0]] * T for i in range(N)]
+    elif case == "top_window":  # only the top window's digits are nonzero
+        top = 256 - (D - 1) * window
+        scs = [[int(rs.randint(1, 1 << top)) << ((D - 1) * window) for _ in range(T)] for _ in range(N)]
+    elif case == "identity":  # identity points, and a row of them only
+        pts = [g.identity() if (k % 3 == 0 or k < T) else p for k, p in enumerate(pts)]
+    return pts, scs
+
+
+# (window, case): each case at w = 5 and 6, and T = 8193 at w = 7 (pick_window)
+BUCKET_CASES = [(w, c) for c in ("random", "one_bucket", "top_window", "one_term", "ragged", "identity")
+                for w in (5, 6)] + [(7, "window7")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("window", [5, 6])
+@pytest.mark.parametrize("window,case", BUCKET_CASES, ids=lambda v: str(v))
 @pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
-def test_bucket_kernels_vs_plain(ops, g, window, cuda):
+def test_bucket_kernels_vs_plain(ops, g, window, case, cuda):
+    """Both bucket kernels against their plain versions as group elements,
+    on the plan's geometry and on every forced one: a lane and a team a
+    bucket (a team up to 64 buckets), 1, 2, 3, 4 and B - 1 (at most 32)
+    segments a window, so that segments of one bucket and counts that do
+    not divide B - 1 are run, and 1, 2, 3 and D windows a team; the two
+    together against straus_msm."""
     from zkecdsa_tpu_torch.ops import msm_bucket as tmb
 
     rs = np.random.RandomState(95 + window)
-    N, T = 3, 200
-    pts, scs = _msm_rows(g, rs, N, T)
-    scs[2] = [0] * T  # a row of padding: every bucket empty
+    pts, scs = _bucket_case(g, rs, case, window)
+    N, T = len(scs), len(scs[0])
+    if case == "window7":
+        assert tmb.pick_window(T) == window
     P = ops.pack_points(pts, cuda).reshape(N, T, ops.NCOORD, -1)
     dig = torch.from_numpy(tmb.window_digits(scs, T, window)).to(cuda)
+    B = 1 << window
+    S_plain = tmb.bucket_sums_plain(ops, P, dig, window)
     S = tmb.bucket_sums(ops, P, dig, window)
-    assert _affine_equal(ops, S, tmb.bucket_sums_plain(ops, P, dig, window))
+    assert _affine_equal(ops, S, S_plain)
+    for lanes in (1, 4) if B <= 64 else (1,):
+        assert _affine_equal(ops, tmb.bucket_sums(ops, P, dig, window, lanes=lanes), S_plain)
+    if B > 64:
+        with pytest.raises(ValueError):
+            tmb.bucket_sums(ops, P, dig, window, lanes=4)
+    want = tmb.bucket_fold_plain(ops, S_plain, window)
     out = tmb.bucket_fold(ops, S, window)
-    assert _affine_equal(ops, out, tmb.bucket_fold_plain(ops, S, window))
+    assert _affine_equal(ops, out, want)
+    for segs in sorted({1, 2, 3, 4, min(32, B - 1)}):
+        assert _affine_equal(ops, tmb.bucket_fold(ops, S, window, segs=segs), want)
+    for wpt in (1, 2, 3, tmb.n_windows(window)):
+        assert _affine_equal(ops, tmb.bucket_fold(ops, S, window, segs=1, wpt=wpt), want)
     assert torch.equal(tmb.msm_bucket_rows(ops, P, scs, window), out)
     digits = torch.from_numpy(tcurve.nibble_digits([s for row in scs for s in row]).astype(np.uint8))
     straus = tcurve.straus_msm(ops, P, digits.reshape(N, T, 64).to(cuda))
     assert _affine_equal(ops, out, straus)
-    assert bool(ops.is_identity(out[2]))
+    if case == "random":
+        assert bool(ops.is_identity(out[2]))
     torch.cuda.synchronize()
 
 

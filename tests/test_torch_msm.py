@@ -138,6 +138,168 @@ def test_window_digits_match_reference(window):
         tmb.window_digits(rows, 2, window)
 
 
+def _fold_model(g, S, window, segs, groups):
+    """The schedule of ``csrc/bucket.cu``'s bucket_fold on host points: per
+    window, ``segs`` segments [lo, hi] of the buckets 1..B-1, each its
+    running sums from the top down (run, and acc = sum (b - lo + 1) S_b),
+    then acc + (lo - 1) * run by a double-and-add over the bits of the last
+    segment's lo - 1, the segments summed by the kernel's tree; then the
+    windows by Horner in ``groups`` groups of ceil(D / groups) from the
+    top (the first padded with identity windows), chained by w * Lg
+    doublings and an add.  S[d][b] host points -> the MSM's point."""
+    D, B = len(S), 1 << window
+    ident = g.identity()
+    nbits = (((segs - 1) * (B - 1)) // segs).bit_length()
+    W = []
+    for d in range(D):
+        pieces = []
+        for j in range(segs):
+            lo, hi = 1 + j * (B - 1) // segs, (j + 1) * (B - 1) // segs
+            run = acc = S[d][hi]
+            for b in range(hi - 1, lo - 1, -1):
+                run = run.add(S[d][b])
+                acc = acc.add(run)
+            if nbits:
+                m = lo - 1
+                t = run if (m >> (nbits - 1)) & 1 else ident
+                for i in range(nbits - 2, -1, -1):
+                    t = t.dbl()
+                    t = t.add(run if (m >> i) & 1 else ident)
+                acc = acc.add(t)
+            pieces.append(acc)
+        h = 1
+        while h < segs:
+            for j in range(0, segs, 2 * h):
+                if j + h < segs:
+                    pieces[j] = pieces[j].add(pieces[j + h])
+            h *= 2
+        W.append(pieces[0])
+    Lg = -(-D // groups)
+    parts = []
+    for gi in range(groups):
+        base = D - (groups - gi) * Lg
+        acc = W[base] if base >= 0 else ident
+        for i in range(1, Lg):
+            for _ in range(window):
+                acc = acc.dbl()
+            acc = acc.add(W[base + i] if base + i >= 0 else ident)
+        parts.append(acc)
+    acc = parts[0]
+    for part in parts[1:]:
+        for _ in range(window * Lg):
+            acc = acc.dbl()
+        acc = acc.add(part)
+    return acc
+
+
+@pytest.mark.parametrize("segs", [1, 2, 3, 4, "most"])
+@pytest.mark.parametrize("window", [5, 6])
+@pytest.mark.parametrize("name", list(CURVES))
+def test_fold_schedule_matches_plain(name, window, segs):
+    """The bucket_fold kernel's schedule (segments, their (lo - 1) * run
+    multiples, the segment tree, the grouped Horner) on host points gives
+    bucket_fold_plain's group element: for 1-4 segments a window (3 does
+    not divide B - 1), for the most the kernel takes (min(32, B - 1):
+    one-bucket segments at w = 5), for the plan's Horner groups, one group
+    and eight; window 0 all empty, bucket 0 ignored."""
+    ops, _, g = CURVES[name]
+    rs = np.random.RandomState(20 + window)
+    D, B = tmb.n_windows(window), 1 << window
+    segs = min(32, B - 1) if segs == "most" else segs
+    G = g.generator()
+    pool = [G.mul(g.new_scalar(int.from_bytes(rs.bytes(32), "big") % g.order)) for _ in range(6)]
+    S = [[pool[rs.randint(6)] if rs.rand() < 0.8 else g.identity() for _ in range(B)] for _ in range(D)]
+    S[0] = [pool[0]] + [g.identity()] * (B - 1)  # an empty window; bucket 0 holds a point, ignored
+    plain = tmb.bucket_fold_plain(ops, ops.pack_points([p for row in S for p in row]).reshape(1, D, B, ops.NCOORD, -1),
+                                  window)
+    want = ops.unpack_points(plain)[0]
+    plan = tmb.bucket_plan(ops, 1, window, 0, segs=segs)
+    for groups in sorted({1, plan.groups, 8}):
+        assert _fold_model(g, S, window, segs, groups).eq(want)
+
+
+# teams of bucket_fold an SM keeps resident: the H100's occupancy of the
+# fold kernel (two blocks of four warps an SM at 218-240 registers), with
+# 132 and 114 SMs; the card's own come from bucket_teams
+FOLD_WARPS = 8
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+@pytest.mark.parametrize("name,N,T,window", [
+    ("p256", 256, 48, 5), ("tomEdwards256", 256, 760, 5), ("tomEdwards256", 16, 8192, 6),
+    ("tomEdwards256", 1, 8193, 7), ("p256", 1, 43, 5),
+])
+def test_bucket_plan(name, N, T, window, sms):
+    """A team a bucket up to 64 buckets (the faster form at every shape
+    timed), a lane past them; the fold's blocks fit the card at once where
+    they can: the most segments (a power of two) with one pass, else one
+    segment and the fewest passes, else one block a row; the Horner
+    groups with the shortest chain; the keywords force the geometry, and
+    what the kernels cannot take raises."""
+    ops = CURVES[name][0]
+    teams_res = sms * FOLD_WARPS * 8
+    D, B = tmb.n_windows(window), 1 << window
+    plan = tmb.bucket_plan(ops, N, window, teams_res)
+    assert plan.lanes == (4 if B <= 64 else 1)
+    top = min(32, B - 1)
+    assert plan.segs & (plan.segs - 1) == 0 and 1 <= plan.segs <= top
+
+    def blocks(segs, wpt):
+        return -(-D // (tmb.FOLD_TEAMS // segs * wpt))
+
+    def fits(segs, wpt):
+        return N * blocks(segs, wpt) * tmb.FOLD_TEAMS <= teams_res
+
+    assert plan.blocks_per_row == blocks(plan.segs, plan.wpt)
+    wpp = tmb.FOLD_TEAMS // plan.segs
+    assert (plan.blocks_per_row - 1) * wpp * plan.wpt < D <= plan.blocks_per_row * wpp * plan.wpt
+    if plan.wpt == 1:
+        assert fits(plan.segs, 1) or plan.blocks_per_row == 1 or plan.segs == 1
+        assert 2 * plan.segs > top or not fits(2 * plan.segs, 1)  # the most that fit
+    else:  # one segment, the fewest passes that fit, else one block a row
+        assert plan.segs == 1 and not fits(1, plan.wpt - 1)
+        assert fits(1, plan.wpt) or plan.blocks_per_row == 1
+    expect = {(256, 48): (1, 2), (256, 760): (1, 2), (16, 8192): (8, 1), (1, 8193): (32, 1), (1, 43): (16, 1)}
+    assert (plan.segs, plan.wpt) == expect[(N, T)]
+    dbl, add = (4, 5) if ops.NCOORD == 3 else (3, 3)
+
+    def chain(gr):
+        Lg = -(-D // gr)
+        return (Lg - 1) * (window * dbl + add) + (gr - 1) * (window * Lg * dbl + add)
+
+    assert 1 <= plan.groups <= 8 and chain(plan.groups) == min(chain(gr) for gr in range(1, 9))
+    for segs in (1, 3, top):
+        forced = tmb.bucket_plan(ops, N, window, teams_res, segs=segs)
+        assert forced.segs == segs and forced.blocks_per_row == blocks(segs, forced.wpt)
+    for wpt in (1, 2, D):
+        forced = tmb.bucket_plan(ops, N, window, teams_res, wpt=wpt)
+        assert forced.wpt == wpt and forced.blocks_per_row == blocks(forced.segs, wpt)
+    for lanes in (1, 4) if B <= 64 else (1,):
+        assert tmb.bucket_plan(ops, N, window, teams_res, lanes=lanes).lanes == lanes
+    bads = ({"segs": 0}, {"segs": top + 1}, {"wpt": 0}, {"wpt": D + 1}, {"lanes": 2})
+    for bad in bads + (({"lanes": 4},) if B > 64 else ()):
+        with pytest.raises(ValueError):
+            tmb.bucket_plan(ops, N, window, teams_res, **bad)
+
+
+def test_fold_rounds():
+    """bucket_fold's chain in team rounds: at P-256 w = 5 and one segment,
+    30 running-sum steps of 2 adds (5 rounds each) a window a team, once
+    or twice (two passes), and the four-group Horner (12 steps of 5
+    doublings and an add, 3 of 65 doublings and an add); at Tom-256 w = 6
+    and 16 segments, 3 steps, a 6-bit multiple and a 4-level tree (3
+    rounds each) before its Horner."""
+    horner = 12 * 25 + 3 * (65 * 4 + 5)
+    for wpt in (1, 2):
+        p_plan = tmb.bucket_plan(tcurve.p256_ops, 256, 5, 0, segs=1, wpt=wpt)
+        assert p_plan.groups == 4
+        assert tmb.fold_rounds(tcurve.p256_ops, 5, p_plan) == wpt * 2 * 30 * 5 + horner
+    t_plan = tmb.bucket_plan(tcurve.tom_ops, 16, 6, 0, segs=16, wpt=1)
+    Lg = -(-43 // t_plan.groups)
+    horner = (Lg - 1) * (6 * 3 + 3) + (t_plan.groups - 1) * (6 * Lg * 3 + 3)
+    assert tmb.fold_rounds(tcurve.tom_ops, 6, t_plan) == 2 * 3 * 3 + (5 * 6 + 3) + 4 * 3 + horner
+
+
 @pytest.mark.parametrize("name", list(CURVES))
 def test_msm_and_ladder_match_reference(name):
     """``msm`` (per-term window multiplies, then a tree) and

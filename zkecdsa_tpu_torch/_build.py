@@ -67,8 +67,9 @@ _SIGNATURES = {
     "zk_comb8_bases": [_I, _L, _P, _P, _P],
     "zk_comb8_entries": [_I, _L, _P, _P, _P, _P],
     "zk_chord": [_L, _P, _P, _P, _P],
-    "zk_bucket_sums": [_I, _L, _L, _I, _I, _P, _P, _P, _P],
-    "zk_bucket_fold": [_I, _L, _I, _I, _I, _P, _P, _P],
+    "zk_bucket_sums": [_I, _I, _L, _L, _I, _I, _P, _P, _P, _P],
+    "zk_bucket_fold": [_I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "zk_bucket_fold_resident_warps": [_I, _P],
     "zk_msm_ladder": [_I, _L, _P, _P, _P, _P],
 }
 

@@ -9,19 +9,26 @@ fold into W_d = sum_b b * S_b; the windows fold by Horner, w doublings and
 one add each.  Unlike the Straus kernel there is no [T, 16] window table:
 the scratch is the [N, D, B] bucket sums.
 
-Two kernels (``csrc/bucket.cu``), counted apart:
+Two kernels (``csrc/bucket.cu``), counted apart, their geometry from
+:func:`bucket_plan`:
 
 * :func:`bucket_sums` replaces the chunk gather and the two trees of the
-  reference (``msm_bucket.py:138-143``): one block per (row, window) lists
-  the terms by bucket in shared memory, and thread b adds its bucket's
-  terms; where the digits leave lanes idle (the top window holds 256 -
-  (D-1)*w real bits) each bucket gets several lanes and a tree merges
-  them.  It needs no host layout, so it has no static chunk budget and
-  nothing to overflow.
+  reference (``msm_bucket.py:138-143``): one block per (row, window)
+  lists the terms by bucket in shared memory (a stable counting sort,
+  O(T)), and a team of four lanes a bucket (a lane past 64 buckets) adds
+  its terms, from the first; where the digits leave units idle (the top
+  window holds 256 - (D-1)*w real bits) each bucket gets several units
+  and a tree merges them.  It needs no host layout, so it has no static
+  chunk budget and nothing to overflow.
 * :func:`bucket_fold` replaces the masked bit fold, the Horner over bits
-  and the window fold (``msm_bucket.py:144-171``): one block per row, one
-  thread per window folding the buckets by running sums, then one thread
-  folding the windows.
+  and the window fold (``msm_bucket.py:144-171``): a team of four lanes
+  a segment of a window's buckets (running sums, a multiple, a tree over
+  the segments), then the row's last block folds the windows by Horner
+  in groups.
+
+Neither kernel converts to Montgomery form: a canonical coordinate read
+as a Montgomery residue is the point scaled by R^-1, the same projective
+point, so the kernels' coordinates are those of the same group elements.
 
 The plain versions (:func:`bucket_sums_plain`, :func:`bucket_fold_plain`)
 follow the reference's schedule, operation for operation, on its host
@@ -33,11 +40,13 @@ plain versions'; the group elements are the same.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .. import _build
-from .curve_ops import CurveOps, _check_points, _stream, scalar_bits
+from .curve_ops import CurveOps, _check_points, _index, _resident_warps, _stream, scalar_bits
 from .field import NLIMBS
 
 __all__ = [
@@ -46,6 +55,10 @@ __all__ = [
     "window_digits",
     "bucket_layout",
     "bucket_bytes",
+    "BucketPlan",
+    "bucket_plan",
+    "bucket_teams",
+    "fold_rounds",
     "bucket_sums",
     "bucket_sums_plain",
     "bucket_fold",
@@ -193,16 +206,132 @@ def bucket_fold_plain(ops: CurveOps, S: torch.Tensor, window: int) -> torch.Tens
     return ops._canon(acc)
 
 
-def bucket_sums(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor, window: int) -> torch.Tensor:
+FOLD_TEAMS = 32  # teams of a bucket_fold block (csrc/bucket.cu FOLD_TEAMS)
+_FOLD_MAX_GROUPS = 8  # Horner groups: the teams of one warp
+_TEAM_MAX_BUCKETS = 64  # a team a bucket: at most 256 threads a block
+# team rounds of a doubling and an add, by coordinates (curve.cuh): RCB
+# P-256 4 and 5, HWCD Tom-256 3 and 3
+_ROUNDS = {3: (4, 5), 4: (3, 3)}
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Geometry of the two bucket kernels for N rows at window w:
+    :func:`bucket_sums` runs ``lanes`` lanes a bucket (1, or 4: a team);
+    :func:`bucket_fold` splits a window's buckets 1..B-1 into ``segs``
+    segments, a team each, ``FOLD_TEAMS // segs`` windows a pass and
+    ``wpt`` passes (windows a team, one after another) a block, so
+    ``blocks_per_row`` blocks a row; it folds the windows by Horner in
+    ``groups`` groups of ``ceil(D / groups)`` windows."""
+
+    lanes: int
+    segs: int
+    wpt: int
+    groups: int
+    blocks_per_row: int
+
+
+def _horner_rounds(D: int, window: int, groups: int, dbl: int, add: int) -> int:
+    """Team rounds of the grouped Horner's chain: a group's Lg - 1 steps
+    (w doublings and an add), then groups - 1 steps of w * Lg doublings
+    and an add."""
+    Lg = -(-D // groups)
+    return (Lg - 1) * (window * dbl + add) + (groups - 1) * (window * Lg * dbl + add)
+
+
+def bucket_plan(ops: CurveOps, N: int, window: int, teams_resident: int, lanes: int | None = None,
+                segs: int | None = None, wpt: int | None = None) -> BucketPlan:
+    """The bucket kernels' geometry for N rows at window w.
+
+    ``bucket_sums``: a team of four lanes a bucket up to 64 buckets (a
+    block of 4B threads), a lane a bucket beyond.  On the H100 the team
+    form was the faster at every shape timed, the card under-filled or
+    filled 13 times over (tools/torch_bucket_probe.py; PERF.md): a team
+    runs an add in 3 or 5 rounds instead of 11 or 14 products, and a warp
+    waits on the longest of 8 buckets instead of 32.  ``bucket_fold``:
+    the rows' blocks (N times the blocks a row, 32 teams each) should fit
+    ``teams_resident`` (:func:`bucket_teams`) at once, since a row's last
+    block holds its place through the Horner and a second wave waits for
+    it: the most segments, a power of two up to 32 and B - 1, that fit
+    with one pass; where one segment does not fit, the fewest passes
+    (windows a team) that do, else one block a row.  ``groups``: the
+    Horner grouping with the shortest chain in team rounds, at most 8.
+    ``lanes``, ``segs`` and ``wpt`` force the geometry (tests,
+    chip_smoke.py and tools/torch_bucket_probe.py)."""
+    _check_window(window)
+    D, B = n_windows(window), 1 << window
+    lanes = _sums_lanes(B, lanes)
+
+    def fits(sg: int, passes: int) -> bool:
+        return N * _blocks_per_row(D, sg, passes) * FOLD_TEAMS <= teams_resident
+
+    top = min(FOLD_TEAMS, B - 1)
+    if segs is None:
+        segs = 1
+        while 2 * segs <= top and fits(2 * segs, wpt or 1):
+            segs *= 2
+    if not 1 <= segs <= top:
+        raise ValueError(f"bucket_fold takes 1..{top} segments at window {window}, not {segs}")
+    if wpt is None:
+        most = -(-D // (FOLD_TEAMS // segs))  # passes for one block a row
+        wpt = next((t for t in range(1, most + 1) if fits(segs, t)), most)
+    if not 1 <= wpt <= D:
+        raise ValueError(f"bucket_fold takes 1..{D} windows a team at window {window}, not {wpt}")
+    dbl, add = _ROUNDS[ops.NCOORD]
+    groups = min(range(1, min(_FOLD_MAX_GROUPS, D) + 1),
+                 key=lambda g: (_horner_rounds(D, window, g, dbl, add), g))
+    return BucketPlan(lanes, segs, wpt, groups, _blocks_per_row(D, segs, wpt))
+
+
+def _sums_lanes(B: int, lanes: int | None) -> int:
+    """bucket_sums' lanes a bucket: a team up to 64 buckets, else one."""
+    if lanes is None:
+        lanes = 4 if B <= _TEAM_MAX_BUCKETS else 1
+    if lanes not in (1, 4) or (lanes == 4 and B > _TEAM_MAX_BUCKETS):
+        raise ValueError(f"bucket_sums runs 1 lane a bucket, or 4 up to {_TEAM_MAX_BUCKETS} buckets; "
+                         f"not {lanes} at {B}")
+    return lanes
+
+
+def fold_rounds(ops: CurveOps, window: int, plan: BucketPlan) -> int:
+    """Team rounds on :func:`bucket_fold`'s dependent chain under ``plan``:
+    for each of a team's ``wpt`` windows, a segment's running sums (2 adds
+    a bucket past its top one), its (lo - 1) * run (a doubling and an add
+    a bit past the top one, then an add) and the tree of the window's
+    segments; then the grouped Horner."""
+    D, B = n_windows(window), 1 << window
+    dbl, add = _ROUNDS[ops.NCOORD]
+    seg_len = -(-(B - 1) // plan.segs)
+    nbits = (((plan.segs - 1) * (B - 1)) // plan.segs).bit_length()  # of the last segment's lo - 1
+    mult = (nbits - 1) * (dbl + add) + add if nbits else 0
+    tree = (plan.segs - 1).bit_length() * add
+    window_rounds = 2 * (seg_len - 1) * add + mult + tree
+    return plan.wpt * window_rounds + _horner_rounds(D, window, plan.groups, dbl, add)
+
+
+def _blocks_per_row(D: int, segs: int, wpt: int) -> int:
+    return -(-D // (FOLD_TEAMS // segs * wpt))
+
+
+def bucket_teams(ops: CurveOps, device) -> int:
+    """Teams of ``bucket_fold``'s kernel that a CUDA device keeps resident
+    at once: its SMs times the four-warp blocks an SM holds (C entry
+    ``zk_bucket_fold_resident_warps``), eight teams a warp."""
+    return _resident_warps("zk_bucket_fold_resident_warps", _index(device), ops.curve_id) * 8
+
+
+def bucket_sums(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor, window: int,
+                lanes: int | None = None) -> torch.Tensor:
     """Bucket sums: points [N, T, C, 9] canonical, window digits [N, D, T]
     (uint8, :func:`window_digits`) -> S [N, D, 2^w, C, 9] canonical.
 
     Kernel ``csrc/bucket.cu`` (replaces the chunk gather and trees of
-    ``zkecdsa_tpu/ops/msm_bucket.py:123 _bucket_body_jit``): one block of
-    2^w threads per (row, window) lists the terms by bucket in shared
-    memory, and thread b adds the points of bucket b; a block whose digits
-    all lie below 2^w / L (the top window) gives each bucket L lanes and
-    sums their pieces by a tree.  A CPU tensor takes
+    ``zkecdsa_tpu/ops/msm_bucket.py:123 _bucket_body_jit``): one block per
+    (row, window) lists the terms by bucket in shared memory (a stable
+    counting sort), and a team of four lanes (up to 64 buckets) or a lane
+    (``lanes`` forces either) adds the points of a bucket from its first; a
+    block whose digits all lie below 2^w / L (the top window) gives each
+    bucket L units and sums their pieces by a tree.  A CPU tensor takes
     :func:`bucket_sums_plain`."""
     _check_window(window)
     if points.device.type == "cpu":
@@ -218,9 +347,10 @@ def bucket_sums(ops: CurveOps, points: torch.Tensor, digits: torch.Tensor, windo
     if T >= 1 << 16:
         raise ValueError(f"bucket_sums takes fewer than 65536 terms a row, got {T}")
     points, digits = points.contiguous(), digits.contiguous()
+    lanes = _sums_lanes(B, lanes)
     out = torch.empty((N, D, B, ops.NCOORD, NLIMBS), dtype=torch.int32, device=points.device)
     code = lib.zk_bucket_sums(
-        ops.curve_id, N, T, D, B, points.data_ptr(), digits.data_ptr(), out.data_ptr(),
+        ops.curve_id, lanes, N, T, D, B, points.data_ptr(), digits.data_ptr(), out.data_ptr(),
         _stream(points),
     )
     _build.check(code, "zk_bucket_sums")
@@ -233,15 +363,18 @@ bucket_sums.launches = 0
 bucket_sums.curves = {}  # launches by curve name
 
 
-def bucket_fold(ops: CurveOps, S: torch.Tensor, window: int) -> torch.Tensor:
+def bucket_fold(ops: CurveOps, S: torch.Tensor, window: int, segs: int | None = None,
+                wpt: int | None = None) -> torch.Tensor:
     """Bucket sums [N, D, 2^w, C, 9] -> [N, C, 9]: per window sum_b b * S_b,
     then the windows by Horner.
 
     Kernel ``csrc/bucket.cu`` (replaces the fold of
     ``zkecdsa_tpu/ops/msm_bucket.py:123 _bucket_body_jit``, ``:144-171``):
-    one block per row, one thread per window (running sums, 2(B-1) adds),
-    then one thread folds the D windows (w doublings and one add each).  A
-    CPU tensor takes :func:`bucket_fold_plain`."""
+    a team of four lanes a segment of a window's buckets (``segs``
+    segments and ``wpt`` windows a team, else :func:`bucket_plan`'s), a
+    tree of the segments into W_d, then the row's last block folds the D
+    windows by Horner in groups.  A CPU tensor takes
+    :func:`bucket_fold_plain`."""
     _check_window(window)
     if S.device.type == "cpu":
         return bucket_fold_plain(ops, S, window)
@@ -252,8 +385,12 @@ def bucket_fold(ops: CurveOps, S: torch.Tensor, window: int) -> torch.Tensor:
     if tuple(S.shape[:-2]) != (N, D, B):
         raise ValueError(f"expected bucket sums [{N}, {D}, {B}, C, 9], got {tuple(S.shape)}")
     S = S.contiguous()
+    plan = bucket_plan(ops, N, window, bucket_teams(ops, S.device), segs=segs, wpt=wpt)
     out = torch.empty((N, ops.NCOORD, NLIMBS), dtype=torch.int32, device=S.device)
-    code = lib.zk_bucket_fold(ops.curve_id, N, D, B, window, S.data_ptr(), out.data_ptr(), _stream(S))
+    wsum = torch.empty((N, D, ops.NCOORD, NLIMBS), dtype=torch.int32, device=S.device)
+    ticket = torch.zeros((N,), dtype=torch.int32, device=S.device)
+    code = lib.zk_bucket_fold(ops.curve_id, N, D, B, window, plan.segs, plan.wpt, plan.groups,
+                              S.data_ptr(), wsum.data_ptr(), ticket.data_ptr(), out.data_ptr(), _stream(S))
     _build.check(code, "zk_bucket_fold")
     bucket_fold.launches += 1
     bucket_fold.curves[ops.group.name] = bucket_fold.curves.get(ops.group.name, 0) + 1
