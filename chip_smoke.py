@@ -1427,9 +1427,11 @@ def check_setup_kernels(dev, params, log) -> tuple[dict, tuple]:
     against the host oracle.  The bound counts the least work of the
     algorithm: 248 doublings a base; 7 doublings and 254 additions a
     window, and for the affine step one batch inversion (3 products an
-    entry and one inverse a call) and the products of x, y (and of the
-    rows x*y, d*x*y, a*x); the bases read, the tables written once.
-    Returns ({name: [shape record, ...]}, the host oracle's tables)."""
+    entry and one inverse a call; the shipped inverse, a binary GCD,
+    counts as its two conversions, the only products it makes) and the
+    products of x, y (and of the rows x*y, d*x*y, a*x); the bases read,
+    the tables written once.  Returns ({name: [shape record, ...]}, the
+    host oracle's tables)."""
     import torch
 
     from zkecdsa_tpu_torch.ops.curve_ops import comb8_bases, comb8_entries, p256_ops, tom_ops
@@ -1457,15 +1459,15 @@ def check_setup_kernels(dev, params, log) -> tuple[dict, tuple]:
         shapes.setdefault("comb8_bases", []).append(rec)
 
         p = ops.f.p
-        ladder = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
         n_ent = R * COMB_W * COMB_E
         nc = tom_ops.MIXED_NC if ops is tom_ops else C
         chains = R * COMB_W * (7 * mm_dbl + 254 * mm_add)
         nbytes = R * COMB_W * C * pb + 2 * n_ent * nc * pb  # both forms written
-        # mm_affine counts the batch inversion's 3 products an entry
+        # mm_affine counts the batch inversion's 3 products an entry; the
+        # inverse, fe_inv_vartime, makes two (from and to Montgomery form)
         bound = _no_looser(f"comb8_entries {what}",
-                           _bound(chains + _batch_inv_mm(p, n_ent) + n_ent * (mm_affine - 3), nbytes),
-                           _bound(chains + n_ent * mm_affine + ladder, nbytes))
+                           _bound(chains + 3 * (n_ent - 1) + 2 + n_ent * (mm_affine - 3), nbytes),
+                           _bound(chains + _batch_inv_mm(p, n_ent) + n_ent * (mm_affine - 3), nbytes))
         call = f"{what}, [{R}, {COMB_W}] window bases (DeviceParams)"
         got, rec = _case("comb8_entries", call, lambda: comb8_entries(ops, bases),
                          lambda: ops.comb8_entries(bases), bound, 10, log, 0)

@@ -709,6 +709,28 @@ def test_comb8_entries_kernel_vs_plain(ops, g, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_comb8_entries_identity_base(ops, g, cuda):
+    """Three bases, the identity in the middle (every Z of its P-256 windows
+    zero: the inversion tree takes one for each and sets its inverse to
+    0), from the kernel's window bases: both kernels bit for bit against
+    their plain versions, in both forms; the identity's entries are (0, 1,
+    0) at P-256 and the mixed rows of (0, 1), (0, 1, 1, 0, 0), at Tom-256."""
+    rs = np.random.RandomState(121)
+    pts = [g.generator().mul(g.new_scalar(_scalar(g, rs))), g.identity(),
+           g.generator().mul(g.new_scalar(_scalar(g, rs)))]
+    P = ops.pack_points(pts, cuda)
+    bases = tcurve.comb8_bases(ops, P)
+    assert torch.equal(bases, ops.comb8_bases(P))
+    got = tcurve.comb8_entries(ops, bases)
+    want = ops.comb8_entries(bases)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rows = [0, 1, 0] if ops is tcurve.p256_ops else [0, 1, 1, 0, 0]
+    assert torch.equal(got[0][1].cpu(), ops.f.pack(rows).expand(32, 256, len(rows), NL))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lanes,B", WEIER_CASES)
 def test_comb_weier_kernel_vs_plain(prover_tables, lanes, B, cuda):
     """comb_weier on the Montgomery table under the geometry, bit for bit
