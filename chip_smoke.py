@@ -40,8 +40,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside its canonical option; ``to_affine`` at its six calls
    under ``affine_plan``'s group and at group 1; ``ring_fold`` at its two
    calls, also against Python integers and against the n ``field_mul``
-   launches it replaced, timed too; ``field_mul``, off the main path, at
-   FIELD_B rows a modulus); each bound counts the least work of the
+   launches it replaced, timed too; the mesh's field kernels, off the
+   main path, at the mesh's calls (``check_field_kernels``: ``field_mul``
+   plain and pair form at FIELD_B rows a modulus, plain at [1536] and
+   [128], its chain form at sharded_gk_total's [2048] x 12 beside the 12
+   launches it replaced, ``field_sum`` at [2, 1536], [2, 128], [2048, 1]
+   and [2, 1], edge rows first, each against Python integers too, with
+   the kernels' device time from a ``torch.profiler`` trace and an empty
+   kernel's at the same grid, the launch floor, beside the CUDA-event
+   time, which at these sizes is the wrapper's rate); each bound counts
+   the least work of the
    function on the call's data (a batch of inversions as one batch
    inversion), and the script raises if a bound it tightened grew; the
    launches per prove at the checked shapes must add up to the counts of
@@ -110,12 +118,14 @@ Phases, in order; any failure raises and the script exits non-zero:
        phase B and the gathers);
    5b. four ranks sharing the one card over gloo, a 2 dp x 2 ring mesh
        (the ring-sharded GK routines: ``ring_fold`` on the low index bits,
-       ``field_mul`` by the high bits' factors, ``field_sum``);
-   5c. in 5b's ranks, ``sharded_gk_total`` (ring 4096, n 12),
+       ``field_mul`` by the high bits' factors, ``field_sum``: one
+       ``field_mul`` and one ``field_sum`` launch a rank a path);
+   5c. in 5b's ranks, ``sharded_gk_total`` (ring 4096, n 12: one
+       ``field_mul`` launch, the chain form, and two ``field_sum``),
        ``sharded_msm`` (8192 Tom-256 terms) and ``sharded_commit`` (N=256)
        against their unsharded counterparts, exactly (points affine);
-   phase 3 holds ``field_sum`` against its plain version at the mesh
-   path's shapes.  Four ranks on one card are no scaling measurement;
+   phase 3 holds the field kernels at the mesh path's shapes.  Four
+   ranks on one card are no scaling measurement;
 6. print the ``kernels`` JSON line (per kernel: its first checked shape's
    times, every shape's record under ``shapes``, ``prove_ms``, the
    kernel time of one prove summed over its shapes, and its launches per
@@ -145,7 +155,19 @@ TAMPER_AT = 37  # batch position whose GK response f[0] is tampered
 SEED = 2024
 DEVICE = "cuda"
 S = 20  # verify rounds (Config.verify_rounds)
-FIELD_B = 65536  # field_mul rows per modulus
+FIELD_B = 65536  # field_mul rows per modulus (plain and pair form)
+# field_mul at the mesh path's calls (Tom-256 order): the high index bits'
+# factors of the d-values (N_l * n = 128 * 12 rows) and of the recombination
+FIELD_MUL = ((1536, "5b prove: sharded_gk_dvalues"), (128, "5b verify: sharded_gk_recombine"))
+FIELD_CHAIN = (2048, 12)  # sharded_gk_total's chain a ring rank (4096 / 2 ring ranks, n)
+FIELD_REPS = 20  # back-to-back calls a field case, timed with events and traced
+# word-mask pairs (all-ones 32-bit words where a mask has bits) whose
+# products take the P-256 prime's Solinas reduction through every
+# correction (tests/torch_field_edges.py; tests/test_torch_field_p256.py
+# shows what each exercises)
+SOLINAS_MASKS = ((124, 124), (48, 160), (49, 164), (24, 160), (19, 189), (17, 181), (12, 128), (9, 171),
+                 (6, 171), (4, 128), (3, 171), (0, 0), (1, 60), (1, 64), (2, 208), (4, 192), (2, 96),
+                 (99, 175), (96, 175), (128, 128), (130, 190), (137, 182), (128, 129))
 EC_B = 16384  # ec_add point pairs per curve
 ROW_MSM = (256, 48)  # the verifier's per-row P-256 MSM [R, T] (43 terms padded to 48)
 MSM = (16, 8192)  # the combined Tom-256 MSM's [R, T] at N=256, ring 2^12
@@ -165,8 +187,10 @@ BUCKET_EDGE_CASES = ("one_bucket", "top_window", "empty")
 LADDER = (4, 1024)  # msm_ladder [R, T] on both curves
 # field_sum [D, R] at the mesh path's calls: the prover's d-values (2 ring
 # ranks, N_l * n = 128 * 12), the verifier's recombination, and
-# sharded_gk_total's local sum (4096 / 2 ring elements)
-FIELD_SUM = ((2, 1536), (2, 128), (2048, 1))
+# sharded_gk_total's local sum (4096 / 2 ring elements) and its gathered
+# partials
+FIELD_SUM = ((2, 1536, "5b prove: sharded_gk_dvalues"), (2, 128, "5b verify: sharded_gk_recombine"),
+             (2048, 1, "5c: sharded_gk_total's local sum"), (2, 1, "5c: sharded_gk_total's gathered partials"))
 # phase 5: (name, backend, (dp, ring), run phase 5c in its ranks)
 MESH_RUNS = (("5a", "nccl", (1, 1), False), ("5b", "gloo", (2, 2), True))
 MESH_TIMEOUT = 420  # seconds for one mesh run's ranks
@@ -206,6 +230,10 @@ IMAD_PER_S = 16.75e12
 # One 9-limb Montgomery product: 81 limb products for a*b, 81 for q*p and
 # 9 quotient digits; each 32x32->64-bit product is two IMADs (low, high).
 IMAD_PER_MODMUL = 2 * (81 + 81 + 9)
+# One product mod the P-256 prime by Solinas reduction (csrc/field.cuh
+# fe_mul_p256): the 8x8-limb product's 64 wide products; the reduction is
+# additions only
+IMAD_PER_SOLINAS = 2 * 64
 # Modular multiplies per point operation (csrc/curve.cuh)
 MM_WEIER_ADD, MM_WEIER_DBL = 14, 13
 MM_EDW_ADD, MM_EDW_DBL, MM_EDW_MIXED = 11, 9, 9
@@ -217,6 +245,20 @@ def _bound(modmuls: float, nbytes: float) -> tuple[float, str]:
     t_ops = modmuls * IMAD_PER_MODMUL / IMAD_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _field_bound(f, products: int, nbytes: int) -> tuple[float, str]:
+    """Bound of ``products`` modular products mod ``f`` and ``nbytes``
+    moved: for the P-256 prime (``P256_P``, ``TOM_N``) a product is the
+    Solinas one's IMADs, checked to be no looser than the Montgomery
+    count it tightens."""
+    old = _bound(products, nbytes)
+    if f.p != 2**256 - 2**224 + 2**192 + 2**96 - 1:
+        return old
+    t_ops = products * IMAD_PER_SOLINAS / IMAD_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    new = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return _no_looser(f"{f.name}: {products} products", new, old)
 
 
 def _fermat_mm(p: int) -> int:
@@ -486,9 +528,9 @@ def _rescaled(ops, pts, n: int, rs, device):
 
 
 def check_kernels(dev, dparams, rs, log) -> dict:
-    """Phase 3, every kernel of slice 1 at the verifier's shapes, and
-    ``field_mul`` (no longer on the main path) at FIELD_B rows a modulus.
-    Returns {name: shape record or records} (see :func:`_case`)."""
+    """Phase 3, every kernel of slice 1 at the verifier's shapes (the
+    field kernels: :func:`check_field_kernels`).  Returns {name: shape
+    record or records} (see :func:`_case`)."""
     import numpy as np
     import torch
 
@@ -500,46 +542,11 @@ def check_kernels(dev, dparams, rs, log) -> dict:
         straus_teams,
         tom_ops,
     )
-    from zkecdsa_tpu_torch.ops.field import (
-        NLIMBS,
-        P256_N,
-        P256_P,
-        TOM_N,
-        TOM_P,
-        WAR_P,
-        field_mul,
-        field_mul_plain,
-        ring_fold_plain,
-    )
+    from zkecdsa_tpu_torch.ops.field import NLIMBS, TOM_N, ring_fold_plain
 
-    entries = {"field_mul": [], "to_affine": []}
+    entries = {"to_affine": []}
     C_P = p256_ops.NCOORD
     pb = NLIMBS * 4  # bytes per field element
-
-    # -- field_mul, plain form: FIELD_B rows per modulus, edge rows first --
-    B = FIELD_B
-    for f in (P256_P, P256_N, TOM_P, TOM_N, WAR_P):
-        p = f.p
-        edge_a = [0, 1, p - 1, p - 1, 1, 0, p - 2]
-        edge_b = [p - 1, p - 1, p - 1, 0, 1, 0, p - 1]
-        ra = [int.from_bytes(rs.bytes(40), "little") % p for _ in range(B - len(edge_a))]
-        rb = [int.from_bytes(rs.bytes(40), "little") % p for _ in range(B - len(edge_b))]
-        ai, bi = edge_a + ra, edge_b + rb
-        a, b = f.pack(ai, dev), f.pack(bi, dev)
-        got = field_mul(f, a, b)
-        plain, plain_ms = _once_ms(lambda: field_mul_plain(f, a, b))
-        err = _exact(f"field_mul[{f.name}]", [(got, plain)])
-        want = [x * y % p for x, y in zip(ai[:512], bi[:512])]
-        if f.unpack(got[:512]) != want:
-            raise AssertionError(f"field_mul[{f.name}] disagrees with Python integers")
-        ms = _cuda_ms(lambda: field_mul(f, a, b), 10)
-        # the least work: one product a row; a, b read and c written
-        bound, by = _bound(B, 3 * B * pb)
-        entries["field_mul"].append(dict(
-            call=f"{f.name} [{B}] (plain form; the mesh's ring-sharded GK)", launches_per_call=1,
-            launches_per_prove=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        ))
-        log(f"field_mul {f.name:7s} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, exact")
 
     # -- ring_fold at the verifier's shape (GK recombination) --------------
     n = RING.bit_length() - 1
@@ -1377,25 +1384,174 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
     return shapes, crossover
 
 
-def check_mesh_kernels(dev, rs, log) -> dict:
-    """Phase 3, slice 6: ``field_sum`` at the mesh path's shapes
-    (``FIELD_SUM``), against its plain version exactly, with a row summing
-    p-1 terms; bound by bytes only: (D*R + R) * 36 over the memory rate."""
-    from zkecdsa_tpu_torch.ops.field import NLIMBS, TOM_N, field_sum, field_sum_plain
+def _word_mask(mask: int, p: int) -> int:
+    """All-ones 32-bit words where ``mask`` has bits (word 0 = bit 0), mod p."""
+    return sum(0xFFFFFFFF << (32 * w) for w in range(8) if (mask >> w) & 1) % p
 
-    q = TOM_N.p
-    recs = []
-    for (D, R), use in zip(FIELD_SUM, ("5b prove: sharded_gk_dvalues", "5b verify: sharded_gk_recombine",
-                                       "5c: sharded_gk_total's local sum")):
-        x = TOM_N.pack([int.from_bytes(rs.bytes(40), "little") % q for _ in range(D * R)], dev).reshape(D, R, -1)
-        x[:, 0] = TOM_N.const(q - 1, dev)
-        _, rec = _case("field_sum", f"Tom-256 order [{D}, {R}] ({use})", lambda: field_sum(TOM_N, x),
-                       lambda: field_sum_plain(TOM_N, x), _bound(0, (D * R + R) * NLIMBS * 4), 20, log, 0)
-        want = sum([q - 1] * D) % q
-        if TOM_N.unpack(field_sum(TOM_N, x)[:1]) != [want]:
+
+def _mul_edges(f) -> list[tuple[int, int]]:
+    """field_mul's edge rows: zeros, ones, p-1 and p-2 against each other,
+    and for the P-256 prime 2^256 - 1 - p squared and the pairs that run
+    the Solinas reduction's corrections every way (SOLINAS_MASKS)."""
+    p = f.p
+    edges = [(0, p - 1), (1, p - 1), (p - 1, p - 1), (p - 1, 0), (1, 1), (0, 0), (p - 2, p - 1)]
+    if p == 2**256 - 2**224 + 2**192 + 2**96 - 1:  # P256_P, TOM_N
+        edges.append((2**256 - 1 - p, 2**256 - 1 - p))
+        edges += [(_word_mask(x, p), _word_mask(y, p)) for x, y in SOLINAS_MASKS]
+    return edges
+
+
+def check_field_kernels(dev, log) -> dict:
+    """Phase 3, the mesh's field kernels, edge rows first, each exact
+    against its plain version and against Python integers: ``field_mul``,
+    plain and pair form, on the five moduli at FIELD_B rows (the row phase
+    3 has always timed) and plain at the mesh's calls (``FIELD_MUL``); its chain
+    form at ``sharded_gk_total``'s FIELD_CHAIN, beside the 12 plain
+    launches it replaced; ``field_sum`` at the mesh's four calls
+    (``FIELD_SUM``), a row summing p-1 D times.  Each record: ``ms`` (CUDA
+    events over FIELD_REPS back-to-back calls, as every kernel's: at these
+    sizes the wrapper's host rate), ``device_ms`` (the kernels' own time a
+    call, from one ``torch.profiler`` trace of the same loops,
+    ``utils.profiling.kernel_device_ms``), ``floor_ms`` (the empty kernel
+    ``zk_noop`` at the call's grid, in the same trace), ``plan``, the
+    bound (for the P-256 prime with the Solinas product's IMADs) and
+    ``plain_ms``."""
+    import numpy as np
+    import torch
+
+    from zkecdsa_tpu_torch import _build
+    from zkecdsa_tpu_torch.ops.field import (
+        NLIMBS,
+        P256_N,
+        P256_P,
+        TOM_N,
+        TOM_P,
+        WAR_P,
+        field_mul,
+        field_mul_chain,
+        field_mul_chain_plain,
+        field_mul_plain,
+        field_plan,
+        field_sum,
+        field_sum_plain,
+    )
+    from zkecdsa_tpu_torch.utils.profiling import kernel_device_ms
+
+    rs = np.random.RandomState(SEED + 15)
+    pb = NLIMBS * 4  # bytes per field element
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    traced = []  # (record, key, fn, kernel names, launches a call)
+    grids = {}  # (blocks, threads) -> records whose floor it is
+
+    def ints(f, n):
+        return [int.from_bytes(rs.bytes(40), "little") % f.p for _ in range(n)]
+
+    def record(name, call, kernel, plain, bound, grid, names, launches=1, **extra):
+        got, rec = _case(name, call, kernel, plain, bound, FIELD_REPS, log, 0, launches)
+        rec.update(extra, plan=dict(blocks=grid[0], threads=grid[1]))
+        traced.append((rec, "device_ms", kernel, names, launches))
+        grids.setdefault(grid, []).append(rec)
+        return got, rec
+
+    recs = {"field_mul": [], "field_sum": []}
+    shapes = [(f, FIELD_B, "the row phase 3 has always timed") for f in (P256_P, P256_N, TOM_P, TOM_N, WAR_P)]
+    shapes += [(TOM_N, B, use) for B, use in FIELD_MUL]
+    for f, B, use in shapes:
+        p = f.p
+        edges = _mul_edges(f)
+        ai = [x for x, _ in edges] + ints(f, B - len(edges))
+        bi = [y for _, y in edges] + ints(f, B - len(edges))
+        a, b = f.pack(ai, dev), f.pack(bi, dev)
+        threads = field_plan(B, sms).threads
+        grid = (-(-B // threads), threads)
+        # the calls run again in the trace after the loop: bind this shape's operands
+        got, rec = record("field_mul", f"{f.name} [{B}] (plain form; {use})",
+                          lambda f=f, a=a, b=b: field_mul(f, a, b),
+                          lambda: field_mul_plain(f, a, b), _field_bound(f, B, 3 * B * pb), grid,
+                          ["field_mul_kernel"])
+        if f.unpack(got[:1024]) != [x * y % p for x, y in zip(ai[:1024], bi[:1024])]:
+            raise AssertionError(f"field_mul[{f.name}] [{B}] disagrees with Python integers")
+        recs["field_mul"].append(rec)
+        if B != FIELD_B:
+            continue
+        d, e = b.roll(1, 0), a.roll(3, 0)
+        got, rec = record("field_mul", f"{f.name} [{B}] (pair form)",
+                          lambda f=f, a=a, b=b, d=d, e=e: field_mul(f, a, b, d, e),
+                          lambda: field_mul_plain(f, a, b, d, e), _field_bound(f, 2 * B, 5 * B * pb), grid,
+                          ["field_mul_kernel"])
+        di, ei = f.unpack(d[:1024]), f.unpack(e[:1024])
+        if f.unpack(got[:1024]) != [(w * x + y * z) % p for w, x, y, z in zip(ai, bi, di, ei)]:
+            raise AssertionError(f"field_mul[{f.name}] pair form disagrees with Python integers")
+        recs["field_mul"].append(rec)
+
+    # -- the chain form at sharded_gk_total's shape, beside its 12 launches --
+    f, (R, n) = TOM_N, FIELD_CHAIN
+    vi, fi = ints(f, R), ints(f, R * n)
+    fi[:2], vi[:2] = [0, f.p - 1], [f.p - 1, 1]
+    vals, fac = f.pack(vi, dev), f.pack(fi, dev).reshape(R, n, NLIMBS)
+
+    def links():  # the parent's sharded_gk_total: n - 1 links, then the values
+        prod = fac[:, 0]
+        for j in range(1, n):
+            prod = field_mul(f, prod, fac[:, j])
+        return field_mul(f, vals, prod)
+
+    threads = field_plan(R, sms).threads
+    got, rec = record("field_mul", f"{f.name} chain [{R}] x {n} (5c: sharded_gk_total, one launch)",
+                      lambda: field_mul_chain(f, vals, fac), lambda: field_mul_chain_plain(f, vals, fac),
+                      _field_bound(f, R * n, (R * n + 2 * R) * pb), (-(-R // threads), threads),
+                      ["field_chain_kernel"])
+    want = []
+    for r in range(R):
+        acc = vi[r]
+        for j in range(n):
+            acc = acc * fi[r * n + j] % f.p
+        want.append(acc)
+    if f.unpack(got) != want:
+        raise AssertionError("field_mul's chain form disagrees with Python integers")
+    err = _exact(f"field_mul chain vs its {n} launches", [(links(), got)])
+    rec.update(ms_links=_cuda_ms(links, FIELD_REPS), launches_links=n, max_abs_err=max(rec["max_abs_err"], err))
+    traced.append((rec, "device_ms_links", links, ["field_mul_kernel"], n))
+    recs["field_mul"].append(rec)
+
+    # -- field_sum at the mesh's calls ---------------------------------------
+    for D, R, use in FIELD_SUM:
+        x = f.pack(ints(f, D * R), dev).reshape(D, R, -1)
+        x[:, 0] = f.const(f.p - 1, dev)
+        plan = field_plan(R, sms, D)
+        grid = (R, plan.lanes) if plan.lanes > 1 else (-(-R // plan.threads), plan.threads)
+        got, rec = record("field_sum", f"{f.name} [{D}, {R}] ({use})", lambda x=x: field_sum(f, x),
+                          lambda: field_sum_plain(f, x), _bound(0, (D * R + R) * pb), grid,
+                          ["field_sum_rows_kernel", "field_sum_block_kernel"], lanes=plan.lanes)
+        xi = f.unpack(x[:, : min(R, 8)].transpose(0, 1))
+        want = [sum(xi[r * D : (r + 1) * D]) % f.p for r in range(min(R, 8))]
+        if f.unpack(got[:8]) != want or want[0] != (f.p - 1) * D % f.p:
             raise AssertionError("field_sum disagrees with Python integers")
-        recs.append(rec)
-    return {"field_sum": recs}
+        recs["field_sum"].append(rec)
+
+    # -- device time: one trace of every case and the empty kernel at each
+    #    case's grid ----------------------------------------------------------
+    def noop(grid):
+        return lambda: _build.check(lib.zk_noop(grid[0], grid[1], stream), "zk_noop")
+
+    cases = [(fn, names, launches) for _, _, fn, names, launches in traced]
+    cases += [(noop(g), ["noop_kernel"], 1) for g in grids]
+    ms = kernel_device_ms(cases, FIELD_REPS, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                                          "trace"))
+    for (rec, key, *_), t in zip(traced, ms):
+        rec[key] = t
+    for g, t in zip(grids, ms[len(traced):]):
+        for rec in grids[g]:
+            rec["floor_ms"] = t
+    for name, rs_ in recs.items():
+        for rec in rs_:
+            log(f"{name} {rec['call']}: device {rec['device_ms']:.5f} ms, launch floor {rec['floor_ms']:.5f} ms "
+                f"(grid {rec['plan']}), events {rec['ms']:.5f} ms, bound {rec['bound_ms']:.2e} ms ({rec['bound_by']})"
+                + (f"; its {rec['launches_links']} launches: device {rec['device_ms_links']:.5f} ms, events "
+                   f"{rec['ms_links']:.5f} ms" if "ms_links" in rec else ""))
+    return recs
 
 
 def _host_tables(params):
@@ -1518,7 +1674,11 @@ def _sharded_checks(mesh, dparams, log) -> dict:
     R, n = GK_TOTAL
     f_i, v_i = ints(R * n), ints(R)
     fac, vec = TOM_N.pack(f_i).reshape(R, n, -1), TOM_N.pack(v_i)
+    field_mul.launches = field_sum.launches = 0
     got = timed("sharded_gk_total", lambda: sharded_gk_total(mesh, fac, vec))
+    launches = (field_mul.launches, field_sum.launches)
+    if launches != (1, 2):  # the chain form; the local sum and the partials'
+        raise AssertionError(f"5c: sharded_gk_total made {launches} field_mul, field_sum launches, not (1, 2)")
     fd = fac.to(dev)
     prod = fd[:, 0]
     for j in range(1, n):
@@ -1544,8 +1704,9 @@ def _sharded_checks(mesh, dparams, log) -> dict:
     got = timed("sharded_commit", lambda: gather(mesh, sharded_commit(mesh, dparams, vals, blinds)))
     if not affine_equal(got, dparams.commit_tom(vals.to(dev), blinds.to(dev))):
         raise AssertionError("5c: sharded_commit disagrees with commit_tom on the whole batch")
-    log(f"5c: sharded_gk_total [{R}, {n}], sharded_msm [{MESH_MSM_T}], sharded_commit [{N}] exact "
-        f"against their unsharded counterparts; seconds {secs}")
+    log(f"5c: sharded_gk_total [{R}, {n}] ({launches[0]} field_mul launch, the chain form; {launches[1]} "
+        f"field_sum), sharded_msm [{MESH_MSM_T}], sharded_commit [{N}] exact against their unsharded "
+        f"counterparts; seconds {secs}")
     return secs
 
 
@@ -1653,7 +1814,7 @@ def _trace_run(what, run, check, shapes, path, per, log) -> dict:
     kernels, in order."""
     import torch
 
-    from zkecdsa_tpu_torch.utils.profiling import device_time, trace
+    from zkecdsa_tpu_torch.utils.profiling import device_time, kernel_launch_us, trace
 
     logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace")
     with trace(logdir) as tr:
@@ -1668,8 +1829,7 @@ def _trace_run(what, run, check, shapes, path, per, log) -> dict:
         log(f"trace: one {what} {wall:.3f} s; the trace holds no device kernel: device-busy share not measured")
         return dict(wall_s=wall, busy_ms=None, busy_share=None)
     names = sorted(set(path) | set(TRACED))
-    launches = {k: [us / 1e3 for _, name, us in kernels
-                    if any(f"{g}<" in name or f"{g}(" in name for g in _GLOBALS.get(k, (f"{k}_kernel",)))]
+    launches = {k: [us / 1e3 for us in kernel_launch_us(kernels, _GLOBALS.get(k, (f"{k}_kernel",)))]
                 for k in names}
     trace_ms = {k: sum(launches[k]) for k in path}
     event_ms = {k: sum(r["ms"] * r.get(per, 0) / r["launches_per_call"] for r in shapes[k]) for k in path}
@@ -1813,7 +1973,7 @@ def main() -> int:
         msm_shapes, crossover = check_msm_kernels(dev, rs, log)
         for k, recs in msm_shapes.items():
             shapes.setdefault(k, []).extend(recs)
-        shapes.update(check_mesh_kernels(dev, rs, log))
+        shapes.update(check_field_kernels(dev, log))
 
         host_jsons = proving.get(timeout=900)
         log(f"host proving: {K} proofs at ring {RING} in {time.perf_counter() - t0:.1f} s "
@@ -2184,6 +2344,13 @@ def main() -> int:
                 f"{r['prove_s']:.3f} s ({N / r['prove_s']:.2f} proofs/s), verify {r['verify_s']:.3f} s "
                 f"({N / r['verify_s']:.2f} proofs/s), tampered batch {r['tampered_s']:.2f} s; launches "
                 f"prove {json.dumps(r['launches_prove'])}, verify {json.dumps(r['launches_verify'])}")
+        if rg > 1:  # the ring-sharded GK routines: one of each a rank a path
+            for r in reports:
+                for path in ("prove", "verify"):
+                    got = [r[f"launches_{path}"][k] for k in ("field_mul", "field_sum")]
+                    if got != [1, 1]:
+                        raise AssertionError(f"{name} rank {r['rank']} {path}: field_mul, field_sum launches "
+                                             f"{got}, not one each")
         p_s, v_s = max(w[0] for w in walls), max(w[1] for w in walls)
         log(f"slice: mesh {name} N={N} ring={RING}: prove {N / p_s:.2f} proofs/s, verify {N / v_s:.2f} "
             f"proofs/s (slowest rank) against unsharded {N / prove_wall:.2f} / {N / verify_wall:.2f} "

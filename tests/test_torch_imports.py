@@ -153,6 +153,7 @@ _CALLS = {
     "field_mul": lambda: tf.field_mul(tf.P256_P, _meta((4, 9)), _meta((4, 9))),
     "ring_fold": lambda: tf.ring_fold(_meta((4, 9)), _meta((1, 2, 9)), _meta((1, 2, 9))),
     "field_sum": lambda: tf.field_sum(tf.TOM_N, _meta((2, 3, 9))),
+    "field_mul_chain": lambda: tf.field_mul_chain(tf.TOM_N, _meta((4, 9)), _meta((4, 3, 9))),
     "ec_add": lambda: tcurve.ec_add(tcurve.p256_ops, _meta((4, 3, 9)), _meta((4, 3, 9))),
     "window_table": lambda: tcurve.window_table(tcurve.p256_ops, _meta((4, 3, 9))),
     "to_affine": lambda: tcurve.to_affine(tcurve.tom_ops, _meta((4, 4, 9))),

@@ -272,6 +272,136 @@ def test_field_sum_kernel_vs_plain(f, D, cuda):
     torch.cuda.synchronize()
 
 
+# rows a field kernel's call gives it: the mesh's [128] (recombine), [1536]
+# (d-values), [2048] (sharded_gk_total's chain), the row phase 3 times, one
+FIELD_ROWS = [128, 1536, 2048, 65536, 1]
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+@pytest.mark.parametrize("rows", FIELD_ROWS)
+def test_field_plan(rows, sms):
+    """A thread a row: the largest block of 256, 128 or 64 threads that
+    gives every SM two blocks, else 32, so the mesh's calls spread over 4
+    to 64 SMs; field_sum past 8 terms a row: a block of 32-512 lanes a
+    row, about 4 terms a lane."""
+    plan = tf.field_plan(rows, sms)
+    assert plan.lanes == 1 and plan.threads in (32, 64, 128, 256)
+    blocks = -(-rows // plan.threads)
+    assert blocks >= 2 * sms or plan.threads == 32
+    assert plan.threads == 256 or -(-rows // (2 * plan.threads)) < 2 * sms  # the largest that does
+    assert plan.threads == {128: 32, 1536: 32, 2048: 32, 65536: 128 if sms == 132 else 256, 1: 32}[rows]
+    for D in (0, 1, 2, 8):
+        assert tf.field_plan(rows, sms, D) == plan
+    for D, lanes in ((9, 32), (128, 32), (129, 64), (1024, 256), (2048, 512), (1 << 20, 512)):
+        assert tf.field_plan(rows, sms, D) == tf.FieldPlan(threads=lanes, lanes=lanes)
+
+
+@pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
+def test_field_mul_chain_plain_vs_integers(f):
+    """The chain form on CPU tensors (its plain version): values times n
+    factors a row, n = 0 (the values), 1 and 5, edge values included."""
+    rs = np.random.RandomState(17)
+    R = 6
+    v_i = _values(f.p, rs, R)
+    for n in (0, 1, 5):
+        f_i = _values(f.p, rs, max(R * n, 5))[: R * n][::-1]
+        fac = f.pack(f_i).reshape(R, n, NL)
+        want = []
+        for r in range(R):
+            acc = v_i[r]
+            for j in range(n):
+                acc = acc * f_i[r * n + j] % f.p
+            want.append(acc)
+        assert f.unpack(tf.field_mul_chain(f, f.pack(v_i), fac)) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [tf.P256_P, tf.TOM_N], ids=lambda f: f.name)
+def test_field_mul_solinas_edges(f, cuda):
+    """The Solinas product on the edge pairs whose reductions take every
+    correction (tests/torch_field_edges.py), at the mesh's row counts,
+    plain and pair form, against the plain version and Python integers."""
+    from torch_field_edges import SOLINAS_EDGE
+
+    rs = np.random.RandomState(5)
+    p = f.p
+    for B in (128, 1536, 65536):
+        pairs = SOLINAS_EDGE + [tuple(int.from_bytes(rs.bytes(40), "little") % p for _ in range(2))
+                                for _ in range(B - len(SOLINAS_EDGE))]
+        a, b = f.pack([x for x, _ in pairs], cuda), f.pack([y for _, y in pairs], cuda)
+        got = tf.field_mul(f, a, b)
+        assert torch.equal(got, tf.field_mul_plain(f, a, b))
+        assert f.unpack(got[: len(SOLINAS_EDGE)]) == [x * y % p for x, y in SOLINAS_EDGE]
+        d, e = b.roll(1, 0), a.roll(3, 0)
+        pair = tf.field_mul(f, a, b, d, e)
+        assert torch.equal(pair, tf.field_mul_plain(f, a, b, d, e))
+        ints = [f.unpack(t[:64]) for t in (a, b, d, e)]
+        assert f.unpack(pair[:64]) == [(w * x + y * z) % p for w, x, y, z in zip(*ints)]
+    top = f.pack([p - 1] * 4, cuda)  # 2 (p-1)^2 > 2^512: the pair sum's carry word is 1
+    assert f.unpack(tf.field_mul(f, top, top, top, top)) == [2 % p] * 4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
+def test_field_mul_grid_shapes(f, cuda):
+    """The 2-D grid: [N, K] calls with a broadcast (stride-0) operand, K
+    below and above a block, and 70000 rows of K = 1, past the grid's
+    65535 in y (the kernel's row stride)."""
+    rs = np.random.RandomState(6)
+    for N, K in ((3, 1), (256, 7), (5, 300), (70000, 1)):
+        a = f.pack(_values(f.p, rs, max(N * K, 5))[: N * K], cuda).reshape(N, K, NL)
+        b = f.pack(_values(f.p, rs, max(K, 5))[:K][::-1], cuda).reshape(1, K, NL).expand(N, K, NL)
+        assert torch.equal(tf.field_mul(f, a, b), tf.field_mul_plain(f, a, b))
+        assert torch.equal(tf.field_mul(f, b, a, a, b), tf.field_mul_plain(f, b, a, a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
+def test_field_mul_chain_kernel_vs_plain(f, cuda):
+    """One chain launch against its plain version (a loop of field_mul)
+    at sharded_gk_total's [2048] x 12, at one row, a block plus one, and
+    n = 0, 1; one field_mul launch each."""
+    rs = np.random.RandomState(7)
+    for R, n in ((2048, 12), (1, 12), (33, 1), (129, 0), (64, 3)):
+        vals = f.pack(_values(f.p, rs, max(R, 5))[:R], cuda)
+        fac = f.pack(_values(f.p, rs, max(R * n, 5))[: R * n][::-1], cuda).reshape(R, n, NL)
+        before = tf.field_mul.launches
+        got = tf.field_mul_chain(f, vals, fac)
+        assert tf.field_mul.launches == before + 1
+        assert torch.equal(got, tf.field_mul_chain_plain(f, vals, fac))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [tf.P256_P, tf.TOM_N, tf.TOM_P], ids=lambda f: f.name)
+def test_field_sum_caller_shapes(f, cuda):
+    """field_sum at the mesh's calls, [2, 1536], [2, 128], [2048, 1] and
+    [2, 1], both geometries' edges (8 and 9 terms) and D = 0 (zeros); the
+    first row sums p-1 D times (the unreduced P-256 sum's carry word)."""
+    rs = np.random.RandomState(8)
+    for D, R in ((2, 1536), (2, 128), (2048, 1), (2, 1), (8, 5), (9, 5), (0, 4)):
+        x = f.pack(_values(f.p, rs, max(D * R, 5))[: D * R], cuda).reshape(D, R, NL)
+        if D:
+            x[:, 0] = f.const(f.p - 1, cuda)
+        got = tf.field_sum(f, x)
+        assert torch.equal(got, tf.field_sum_plain(f, x))
+        assert f.unpack(got[:1]) == [(f.p - 1) * D % f.p]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_noop_launches(cuda):
+    """zk_noop, the launch floor's empty kernel, launches at several grids."""
+    from zkecdsa_tpu_torch import _build
+
+    lib = _build.load()
+    for blocks, threads in ((1, 32), (48, 32), (512, 128)):
+        _build.check(lib.zk_noop(blocks, threads, torch.cuda.current_stream().cuda_stream), "zk_noop")
+    torch.cuda.synchronize()
+
+
 def test_build_lock_excludes_a_second_process(monkeypatch, tmp_path):
     """While one process holds the build lock, another's non-blocking
     acquire of the same lock file fails; once released, it succeeds."""

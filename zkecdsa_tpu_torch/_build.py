@@ -45,8 +45,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "zk_field_mul": [_I, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P],
-    "zk_field_sum": [_I, _L, _L, _P, _P, _P],
+    "zk_field_mul": [_I, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _I, _P],
+    "zk_field_mul_chain": [_I, _L, _I, _P, _P, _P, _I, _P],
+    "zk_field_sum": [_I, _L, _L, _P, _P, _I, _I, _P],
+    "zk_noop": [_I, _I, _P],
     "zk_ring_fold": [_I, _L, _P, _P, _P, _P, _P],
     "zk_ec_add": [_I, _L, _P, _P, _P, _P],
     "zk_tree_sum": [_I, _I, _L, _P, _P, _P],

@@ -1,20 +1,32 @@
-// field_mul: c = a*b mod p, and the pair form c = a*b + d*e mod p, over
-// canonical 9-limb values, one thread per output row.  ring_fold: the GK
-// ring contraction in one launch.  field_sum: the sum over the leading
-// axis of [D, R] values mod p (at the end of the file).
+// field_mul: c = a*b mod p, the pair form c = a*b + d*e mod p, and the
+// chain form c = v * prod_j f_j mod p, over canonical 9-limb values, one
+// thread a row.  ring_fold: the GK ring contraction in one launch.
+// field_sum: the sum over the leading axis of [D, R] values mod p (at the
+// end of the file).
 //
 // field_mul replaces zkecdsa_tpu/ops/pallas_field.py:183 pallas_mul (and
-// the generic F32Field.mul, zkecdsa_tpu/ops/f32field.py:354).  Bound on
-// the H100: 32-bit integer multiply-adds.  A row costs two 9x9-limb
-// Montgomery passes (four for the pair form), each 162 32x32->64-bit
-// products, against 108 bytes moved (180 for the pair form), which puts it
-// on the operations side of the card's IMAD/byte balance.  No tensor-core
-// path exists for 32-bit modular products; the design keeps every
-// intermediate in registers so each operand is read once.  Operands are
-// [N, K, 9] views given by (stride0, stride1) in limbs, with the limb axis
-// contiguous, so broadcast operands (stride 0) cost no copy.  The main
-// path no longer calls it (ring_fold below took its one use there); the
-// mesh's ring-sharded GK routines do.
+// the generic F32Field.mul, zkecdsa_tpu/ops/f32field.py:354); its chain
+// form replaces the fo.mul loop of zkecdsa_tpu/parallel/mesh.py:122-125
+// (sharded_gk_total: the product of a ring element's n factors, then its
+// value), which ran as n launches, each through HBM.  Its callers are the
+// mesh's ring-sharded GK routines, all on the Tom-256 order, which is the
+// P-256 prime: [1536] and [128] rows for the high index bits' factors, a
+// chain of 12 factors over [2048] rows.  At those sizes a launch's fixed
+// cost is most of its device time, so the design cuts each row's chain
+// and spreads the rows: the P-256 prime takes the Solinas product
+// (field.cuh fe_mul_p256: 64 wide products and ~110 additions in standard
+// form, where the parent ran two 9x9-limb Montgomery products, a
+// conversion in and the product); the other moduli keep CIOS (CiosOp:
+// two products, three for the pair form); the rows go one a thread in
+// blocks of `threads` (32-256, chosen by the wrapper from the row count,
+// ops/field.py field_plan, so that [128]-[2048] rows spread over the
+// SMs); a 2-D grid (x over the K axis, y over N) replaces the flat index's
+// 64-bit division; the chain keeps its running product in registers and
+// loads the next factor while it multiplies.  Bound on the H100: bytes at
+// every caller shape (108 bytes a product, 180 for the pair form, 36 a
+// link of a chain), far under the launch floor at the callers' sizes.
+// Operands are [N, K, 9] views given by (stride0, stride1) in limbs, with
+// the limb axis contiguous, so broadcast operands (stride 0) cost no copy.
 //
 // ring_fold replaces zkecdsa_tpu/protocol/batch_gk.py:66 _fold_ring:
 // out[r] = sum_i v_i * prod_j (f[r, j] if bit_j(i) else xf[r, j]) mod the
@@ -40,46 +52,88 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "field.cuh"
+
+// The products of a modulus.  CiosOp: Montgomery products (a is converted,
+// a*R times b is a*b in standard form); the pair form as a*b/R + d*e/R,
+// then one conversion: three products.  SolinasOp: the P-256 prime
+// (field.cuh fe_mul_p256).
+template <int MOD>
+struct CiosOp {
+    static __device__ __forceinline__ void mul(Fe r, const Fe a, const Fe b) {
+        const ZkModulus& M = ZK_MODS[MOD];
+        Fe am;
+        fe_to_mont(am, a, M);
+        fe_mont_mul(r, am, b, M);
+    }
+    static __device__ __forceinline__ void mul2(Fe r, const Fe a, const Fe b, const Fe d, const Fe e) {
+        const ZkModulus& M = ZK_MODS[MOD];
+        Fe t, u;
+        fe_mont_mul(t, a, b, M);
+        fe_mont_mul(u, d, e, M);
+        fe_add(t, t, u, M);
+        fe_to_mont(r, t, M);
+    }
+};
+
+struct SolinasOp {
+    static __device__ __forceinline__ void mul(Fe r, const Fe a, const Fe b) { fe_mul_p256(r, a, b); }
+    // each product reduced, then a modular add: 10% less device time at
+    // [65536] than the two 512-bit products summed and reduced once
+    // (tools/torch_field_probe.py, PERF.md)
+    static __device__ __forceinline__ void mul2(Fe r, const Fe a, const Fe b, const Fe d, const Fe e) {
+        Fe t, u;
+        fe_mul_p256(t, a, b);
+        fe_mul_p256(u, d, e);
+        fe_add(r, t, u, ZK_MODS[ZK_P256_P]);
+    }
+};
+
+template <int MOD>
+using OpFor = std::conditional_t<MOD == ZK_P256_P || MOD == ZK_TOM_N, SolinasOp, CiosOp<MOD>>;
 
 struct Operand {
     const uint32_t* ptr;
     long long s0, s1;
 };
 
-template <int MOD, bool PAIR>
+// blockIdx.x over K, blockIdx.y (and its stride, past 65535 rows) over N
+template <class Op, bool PAIR>
 __global__ void field_mul_kernel(long long N, long long K, Operand a, Operand b, Operand d,
                                  Operand e, uint32_t* __restrict__ out) {
-    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= N * K) return;
-    const long long n = idx / K, k = idx % K;
-    const ZkModulus& M = ZK_MODS[MOD];
-    Fe x, y, am, r;
-    fe_load(x, a.ptr + n * a.s0 + k * a.s1);
-    fe_load(y, b.ptr + n * b.s0 + k * b.s1);
-    fe_to_mont(am, x, M);
-    fe_mont_mul(r, am, y, M);  // a*b (standard form)
-    if (PAIR) {
-        Fe dm, t;
-        fe_load(x, d.ptr + n * d.s0 + k * d.s1);
-        fe_load(y, e.ptr + n * e.s0 + k * e.s1);
-        fe_to_mont(dm, x, M);
-        fe_mont_mul(t, dm, y, M);  // d*e
-        fe_add(r, r, t, M);
+    const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= K) return;
+    for (long long n = blockIdx.y; n < N; n += gridDim.y) {
+        Fe x, y, r;
+        fe_load(x, a.ptr + n * a.s0 + k * a.s1);
+        fe_load(y, b.ptr + n * b.s0 + k * b.s1);
+        if (PAIR) {
+            Fe u, v;
+            fe_load(u, d.ptr + n * d.s0 + k * d.s1);
+            fe_load(v, e.ptr + n * e.s0 + k * e.s1);
+            Op::mul2(r, x, y, u, v);
+        } else {
+            Op::mul(r, x, y);
+        }
+        fe_store(out + (n * K + k) * ZK_NL, r);
     }
-    fe_store(out + idx * ZK_NL, r);
 }
 
-template <int MOD>
-static void launch(long long N, long long K, Operand a, Operand b, Operand d, Operand e,
-                   uint32_t* out, cudaStream_t st) {
-    const int threads = 256;
-    const long long blocks = (N * K + threads - 1) / threads;
+template <class Op>
+static void launch_mul(long long N, long long K, Operand a, Operand b, Operand d, Operand e,
+                       uint32_t* out, int threads, cudaStream_t st) {
+    const dim3 grid((unsigned)((K + threads - 1) / threads), (unsigned)(N < 65535 ? N : 65535));
     if (d.ptr != nullptr) {
-        field_mul_kernel<MOD, true><<<(unsigned)blocks, threads, 0, st>>>(N, K, a, b, d, e, out);
+        field_mul_kernel<Op, true><<<grid, threads, 0, st>>>(N, K, a, b, d, e, out);
     } else {
-        field_mul_kernel<MOD, false><<<(unsigned)blocks, threads, 0, st>>>(N, K, a, b, d, e, out);
+        field_mul_kernel<Op, false><<<grid, threads, 0, st>>>(N, K, a, b, d, e, out);
     }
+}
+
+static bool valid_threads(int threads) {
+    return threads >= 32 && threads <= 1024 && (threads & (threads - 1)) == 0;
 }
 
 extern "C" int zk_field_mul(int mod, long long N, long long K,
@@ -87,18 +141,62 @@ extern "C" int zk_field_mul(int mod, long long N, long long K,
                             const void* b, long long bs0, long long bs1,
                             const void* d, long long ds0, long long ds1,
                             const void* e, long long es0, long long es1,
-                            void* out, void* stream) {
+                            void* out, int threads, void* stream) {
+    if (!valid_threads(threads)) return (int)cudaErrorInvalidValue;
     if (N * K == 0) return 0;
     const Operand A{(const uint32_t*)a, as0, as1}, B{(const uint32_t*)b, bs0, bs1};
     const Operand D{(const uint32_t*)d, ds0, ds1}, E{(const uint32_t*)e, es0, es1};
     cudaStream_t st = (cudaStream_t)stream;
     uint32_t* o = (uint32_t*)out;
     switch (mod) {
-        case ZK_P256_P: launch<ZK_P256_P>(N, K, A, B, D, E, o, st); break;
-        case ZK_P256_N: launch<ZK_P256_N>(N, K, A, B, D, E, o, st); break;
-        case ZK_TOM_P: launch<ZK_TOM_P>(N, K, A, B, D, E, o, st); break;
-        case ZK_TOM_N: launch<ZK_TOM_N>(N, K, A, B, D, E, o, st); break;
-        case ZK_WAR_P: launch<ZK_WAR_P>(N, K, A, B, D, E, o, st); break;
+        case ZK_P256_P: launch_mul<OpFor<ZK_P256_P>>(N, K, A, B, D, E, o, threads, st); break;
+        case ZK_P256_N: launch_mul<OpFor<ZK_P256_N>>(N, K, A, B, D, E, o, threads, st); break;
+        case ZK_TOM_P: launch_mul<OpFor<ZK_TOM_P>>(N, K, A, B, D, E, o, threads, st); break;
+        case ZK_TOM_N: launch_mul<OpFor<ZK_TOM_N>>(N, K, A, B, D, E, o, threads, st); break;
+        case ZK_WAR_P: launch_mul<OpFor<ZK_WAR_P>>(N, K, A, B, D, E, o, threads, st); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The chain form: out[r] = values[r] * prod_j factors[r, j], factors
+// [R, n, 9] and values [R, 9] contiguous, a thread a row.  The products
+// run from the values row through the factors in order (canonical
+// integers: any order gives the same result); factor j + 1 is loaded
+// while factor j's product runs.
+template <class Op>
+__global__ void field_chain_kernel(long long R, int n, const uint32_t* __restrict__ values,
+                                   const uint32_t* __restrict__ factors, uint32_t* __restrict__ out) {
+    const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= R) return;
+    const uint32_t* f = factors + r * n * ZK_NL;
+    Fe acc, cur;
+    fe_load(acc, values + r * ZK_NL);
+    if (n > 0) fe_load(cur, f);
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+        Fe fj;
+        fe_copy(fj, cur);
+        if (j + 1 < n) fe_load(cur, f + (j + 1) * ZK_NL);
+        Op::mul(acc, acc, fj);
+    }
+    fe_store(out + r * ZK_NL, acc);
+}
+
+extern "C" int zk_field_mul_chain(int mod, long long R, int n, const void* values,
+                                  const void* factors, void* out, int threads, void* stream) {
+    if (!valid_threads(threads) || n < 0) return (int)cudaErrorInvalidValue;
+    if (R == 0) return 0;
+    const unsigned blocks = (unsigned)((R + threads - 1) / threads);
+    cudaStream_t st = (cudaStream_t)stream;
+    const uint32_t *v = (const uint32_t*)values, *f = (const uint32_t*)factors;
+    uint32_t* o = (uint32_t*)out;
+    switch (mod) {
+        case ZK_P256_P: field_chain_kernel<OpFor<ZK_P256_P>><<<blocks, threads, 0, st>>>(R, n, v, f, o); break;
+        case ZK_P256_N: field_chain_kernel<OpFor<ZK_P256_N>><<<blocks, threads, 0, st>>>(R, n, v, f, o); break;
+        case ZK_TOM_P: field_chain_kernel<OpFor<ZK_TOM_P>><<<blocks, threads, 0, st>>>(R, n, v, f, o); break;
+        case ZK_TOM_N: field_chain_kernel<OpFor<ZK_TOM_N>><<<blocks, threads, 0, st>>>(R, n, v, f, o); break;
+        case ZK_WAR_P: field_chain_kernel<OpFor<ZK_WAR_P>><<<blocks, threads, 0, st>>>(R, n, v, f, o); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
@@ -181,70 +279,172 @@ extern "C" int zk_ring_fold(int n, long long N, const void* values, const void* 
 // Replaces the fo.add folds of the sharded GK routines,
 // zkecdsa_tpu/parallel/mesh.py:130-136 (sharded_gk_total: the local sum
 // and the fold of the gathered partials), :204-207 (sharded_gk_dvalues)
-// and :255-258 (sharded_gk_recombine).
+// and :255-258 (sharded_gk_recombine).  Their calls: [2, 1536], [2, 128]
+// and [2, 1] (the gathered partials of two ring ranks) and [2048, 1]
+// (sharded_gk_total's local sum).
 //
-// Bound on the H100: bytes.  An addition is ~30 instructions against 36
-// bytes read, so the kernel only has to read each value once.  A block of
-// 256 threads serves 256/lanes output rows; the `lanes` threads of a row
-// (a power of two, at most 256, chosen by the wrapper from D) sum a
-// strided share of the D values each, then fold their partial sums in a
-// shared-memory tree.  Modular addition of canonical values is exact, so
+// Bound on the H100: bytes (an addition is ~20 instructions against 36
+// bytes read), far under the launch floor at those sizes, so the design
+// cuts the steps a call waits on.  Small D (at most 8, the ring axis): a
+// thread a row adds its D values in registers, no shared memory, no
+// barrier (field_sum_rows_kernel; blocks of `threads` by the wrapper's
+// plan).  Large D: a block of `threads` lanes a row, each lane summing a
+// strided share, then a warp-shuffle tree (5 levels) and one step across
+// the warps through shared memory (field_sum_block_kernel).  For the
+// P-256 prime the sums stay unreduced in 9 words (8 and a carry word: up
+// to 2^32 terms fit) and are reduced once at the end by two Solinas folds
+// and a masked subtraction (P256Acc); the other moduli add modulo p at
+// every step (ModAcc).  Modular addition of canonical values is exact, so
 // any order gives the plain version's integers.
 
 template <int MOD>
-__global__ void field_sum_kernel(long long D, long long R, int lanes,
-                                 const uint32_t* __restrict__ x, uint32_t* __restrict__ out) {
-    extern __shared__ uint32_t part[];  // [blockDim.x, ZK_NL]
-    const ZkModulus& M = ZK_MODS[MOD];
-    const int lane = threadIdx.x % lanes;
-    const long long r = (long long)blockIdx.x * (blockDim.x / lanes) + threadIdx.x / lanes;
-    Fe acc, v;
-    fe_set_zero(acc);
-    if (r < R) {
-        for (long long d = lane; d < D; d += lanes) {
-            fe_load(v, x + (d * R + r) * ZK_NL);
-            fe_add(acc, acc, v, M);
-        }
+struct ModAcc {
+    Fe v;
+    __device__ __forceinline__ void zero() { fe_set_zero(v); }
+    __device__ __forceinline__ void add(const Fe x) { fe_add(v, v, x, ZK_MODS[MOD]); }
+    __device__ __forceinline__ void get(Fe r) const { fe_copy(r, v); }
+};
+
+struct P256Acc {
+    uint32_t v[ZK_NL];  // the unreduced sum: words 0..7 and a carry word
+    __device__ __forceinline__ void zero() { fe_set_zero(v); }
+    __device__ __forceinline__ void add(const Fe x) {
+        p256_add8(v, x[0], x[1], x[2], x[3], x[4], x[5], x[6], x[7]);  // x[8] = 0: x < p
     }
-    fe_store(part + threadIdx.x * ZK_NL, acc);
+    __device__ __forceinline__ void get(Fe r) const {
+        uint32_t t[ZK_NL];
+        fe_copy(t, v);
+        p256_fold(t);  // < 2^257
+        p256_fold(t);  // < 2^256 < 2p
+        fe_reduce_once(r, t, 0u, ZK_MODS[ZK_P256_P]);
+    }
+};
+
+template <int MOD>
+using AccFor = std::conditional_t<MOD == ZK_P256_P || MOD == ZK_TOM_N, P256Acc, ModAcc<MOD>>;
+
+template <class Acc>
+__global__ void field_sum_rows_kernel(long long D, long long R, const uint32_t* __restrict__ x,
+                                      uint32_t* __restrict__ out) {
+    const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= R) return;
+    Acc acc;
+    acc.zero();
+    Fe v;
+#pragma unroll 4
+    for (long long d = 0; d < D; ++d) {
+        fe_load(v, x + (d * R + r) * ZK_NL);
+        acc.add(v);
+    }
+    acc.get(v);
+    fe_store(out + r * ZK_NL, v);
+}
+
+// a += b, for the warp's tree
+template <int MOD>
+__device__ __forceinline__ void merge(ModAcc<MOD>& a, const ModAcc<MOD>& b) { a.add(b.v); }
+
+__device__ __forceinline__ void merge(P256Acc& a, const P256Acc& b) {
+    uint32_t* t = a.v;
+    asm("add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, %10;\n\t"
+        "addc.cc.u32 %2, %2, %11;\n\t"
+        "addc.cc.u32 %3, %3, %12;\n\t"
+        "addc.cc.u32 %4, %4, %13;\n\t"
+        "addc.cc.u32 %5, %5, %14;\n\t"
+        "addc.cc.u32 %6, %6, %15;\n\t"
+        "addc.cc.u32 %7, %7, %16;\n\t"
+        "addc.u32 %8, %8, %17;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8])
+        : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]),
+          "r"(b.v[6]), "r"(b.v[7]), "r"(b.v[8]));
+}
+
+// the word-by-word sum of the accumulators of lanes l and l + 16, l + 8,
+// ... l + 1: lane 0 ends with the warp's sum (as an addend: an unreduced
+// P-256 sum is added word by word with its carry word)
+template <class Acc>
+__device__ __forceinline__ void warp_fold(Acc& acc) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        Acc o;
+#pragma unroll
+        for (int i = 0; i < ZK_NL; ++i) o.v[i] = __shfl_down_sync(0xffffffffu, acc.v[i], off);
+        merge(acc, o);
+    }
+}
+
+template <class Acc>
+__global__ void __launch_bounds__(1024) field_sum_block_kernel(
+    long long D, long long R, const uint32_t* __restrict__ x, uint32_t* __restrict__ out) {
+    __shared__ uint32_t part[32 * ZK_NL];  // a warp's sum each
+    const long long r = blockIdx.x;
+    const int t = threadIdx.x, warp = t >> 5, lane = t & 31, warps = blockDim.x >> 5;
+    Acc acc;
+    acc.zero();
+    Fe v;
+#pragma unroll 4
+    for (long long d = t; d < D; d += blockDim.x) {
+        fe_load(v, x + (d * R + r) * ZK_NL);
+        acc.add(v);
+    }
+    warp_fold(acc);
+    if (lane == 0) fe_store(part + warp * ZK_NL, acc.v);
     __syncthreads();
-    // lane k < h adds lane k + h's sum: the readers' slots are not written
-    // in the same step, so one barrier a step suffices
-    for (int h = lanes / 2; h > 0; h >>= 1) {
-        if (lane < h) {
-            fe_load(v, part + (threadIdx.x + h) * ZK_NL);
-            fe_add(acc, acc, v, M);
-            fe_store(part + threadIdx.x * ZK_NL, acc);
+    if (warp == 0) {
+        if (lane < warps) {
+            fe_load(acc.v, part + lane * ZK_NL);
+        } else {
+            acc.zero();
         }
-        __syncthreads();
+        warp_fold(acc);
+        if (lane == 0) {
+            acc.get(v);
+            fe_store(out + r * ZK_NL, v);
+        }
     }
-    if (lane == 0 && r < R) fe_store(out + r * ZK_NL, acc);
 }
 
 template <int MOD>
-static void launch_sum(long long D, long long R, const uint32_t* x, uint32_t* out, cudaStream_t st) {
-    const int threads = 256;
-    int lanes = 1;
-    while (lanes < threads && lanes < D) lanes <<= 1;
-    const long long rows = threads / lanes;
-    const long long blocks = (R + rows - 1) / rows;
-    field_sum_kernel<MOD><<<(unsigned)blocks, threads, threads * ZK_NL * sizeof(uint32_t), st>>>(
-        D, R, lanes, x, out);
+static void launch_sum(long long D, long long R, const uint32_t* x, uint32_t* out, int lanes,
+                       int threads, cudaStream_t st) {
+    if (lanes == 1) {
+        field_sum_rows_kernel<AccFor<MOD>><<<(unsigned)((R + threads - 1) / threads), threads, 0, st>>>(
+            D, R, x, out);
+    } else {
+        field_sum_block_kernel<AccFor<MOD>><<<(unsigned)R, lanes, 0, st>>>(D, R, x, out);
+    }
 }
 
-extern "C" int zk_field_sum(int mod, long long D, long long R, const void* x, void* out,
-                            void* stream) {
+// lanes: 1 (a thread a row, blocks of `threads`) or a block of `lanes`
+// threads a row (a multiple of 32, at most 1024; `threads` unused)
+extern "C" int zk_field_sum(int mod, long long D, long long R, const void* x, void* out, int lanes,
+                            int threads, void* stream) {
+    if (lanes == 1 ? !valid_threads(threads) : (lanes < 32 || lanes > 1024 || lanes % 32 != 0)) {
+        return (int)cudaErrorInvalidValue;
+    }
     if (R == 0) return 0;
     const uint32_t* X = (const uint32_t*)x;
     uint32_t* o = (uint32_t*)out;
     cudaStream_t st = (cudaStream_t)stream;
     switch (mod) {
-        case ZK_P256_P: launch_sum<ZK_P256_P>(D, R, X, o, st); break;
-        case ZK_P256_N: launch_sum<ZK_P256_N>(D, R, X, o, st); break;
-        case ZK_TOM_P: launch_sum<ZK_TOM_P>(D, R, X, o, st); break;
-        case ZK_TOM_N: launch_sum<ZK_TOM_N>(D, R, X, o, st); break;
-        case ZK_WAR_P: launch_sum<ZK_WAR_P>(D, R, X, o, st); break;
+        case ZK_P256_P: launch_sum<ZK_P256_P>(D, R, X, o, lanes, threads, st); break;
+        case ZK_P256_N: launch_sum<ZK_P256_N>(D, R, X, o, lanes, threads, st); break;
+        case ZK_TOM_P: launch_sum<ZK_TOM_P>(D, R, X, o, lanes, threads, st); break;
+        case ZK_TOM_N: launch_sum<ZK_TOM_N>(D, R, X, o, lanes, threads, st); break;
+        case ZK_WAR_P: launch_sum<ZK_WAR_P>(D, R, X, o, lanes, threads, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
+    return (int)cudaGetLastError();
+}
+
+// zk_noop: an empty kernel, launched through the same ctypes path as the
+// kernels above, so that a trace of it gives the device time of a launch
+// that does no work (the launch floor beside a small call's device time).
+__global__ void noop_kernel() {}
+
+extern "C" int zk_noop(int blocks, int threads, void* stream) {
+    noop_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

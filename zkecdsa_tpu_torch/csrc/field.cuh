@@ -5,12 +5,14 @@
 //
 // Boundary contract: every value a kernel reads or writes in device memory
 // is canonical (in [0, p)) and in standard form.  Inside a kernel values are
-// in Montgomery form (x * R mod p, R = 2^288) and every operation returns a
-// fully reduced result, so the kernel arithmetic is branch-free and needs no
-// bound tracking.
+// in Montgomery form (x * R mod p, R = 2^288), except in the P-256 prime's
+// Solinas products at the end of the file, which stay in standard form;
+// every operation returns a fully reduced result, so the kernel arithmetic
+// is branch-free and needs no bound tracking.
 //
 // The constants below are checked against Python integers by
-// tests/test_torch_field.py (which parses this file).
+// tests/test_torch_field.py (which parses this file), the Solinas steps by
+// tests/test_torch_field_p256.py.
 #pragma once
 
 #include <cstdint>
@@ -267,4 +269,147 @@ __device__ __forceinline__ void fe_load(Fe r, const uint32_t* g) {
 __device__ __forceinline__ void fe_store(uint32_t* g, const Fe a) {
 #pragma unroll
     for (int i = 0; i < ZK_NL; ++i) g[i] = a[i];
+}
+
+// ---------------------------------------------------------------------------
+// The P-256 prime p = 2^256 - 2^224 + 2^192 + 2^96 - 1 (ZK_P256_P, and
+// ZK_TOM_N: the Tom-256 group order is the same prime) by Solinas
+// reduction, in standard form: no conversion in or out.  A product is the
+// 8x8-limb schoolbook product (64 wide products; limb 8 of a canonical
+// value is 0) and the reduction of FIPS 186-4 D.2.3 (Hankerson, Menezes,
+// Vanstone, Alg. 2.29): with the product's words c0..c15,
+//   t = s1 + 2 s2 + 2 s3 + s4 + s5 - s6 - s7 - s8 - s9 + 5p,
+// each s_k a word permutation below (LSB first, "-" a zero word).  Without
+// the 5p, t lies in (-4 2^256, 7 2^256) and its top word is signed; the 5p
+// keeps it in [0, 12 2^256), so the top word h is in [0, 11] and one fold
+// through 2^256 = 2^224 - 2^192 - 2^96 + 1 (mod p) leaves t < 2p, which
+// one masked subtraction of p makes canonical.  Every step runs on every
+// value: no branch, no loop whose count depends on a value.  A fold costs
+// two carry chains, so the reduction is 10 chains and a subtraction
+// (about 110 additions) against the two 9x9-limb Montgomery products (2 x
+// 171 wide products) it replaces.  tests/test_torch_field_p256.py models
+// every step with Python integers.
+//
+//   s1 = c0  c1  c2  c3  c4  c5  c6  c7      s6 = c11 c12 c13 -   -   -   c8  c10
+//   s2 = -   -   -   c11 c12 c13 c14 c15     s7 = c12 c13 c14 c15 -   -   c9  c11
+//   s3 = -   -   -   c12 c13 c14 c15 -       s8 = c13 c14 c15 c8  c9  c10 -   c12
+//   s4 = c8  c9  c10 -   -   -   c14 c15     s9 = c14 c15 -   c9  c10 c11 -   c13
+//   s5 = c9  c10 c11 c13 c14 c15 c13 c8
+
+// t[0..8] += (x0, ..., x7, 0): one carry chain
+__device__ __forceinline__ void p256_add8(uint32_t* t, uint32_t x0, uint32_t x1, uint32_t x2,
+                                          uint32_t x3, uint32_t x4, uint32_t x5, uint32_t x6,
+                                          uint32_t x7) {
+    asm("add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, %10;\n\t"
+        "addc.cc.u32 %2, %2, %11;\n\t"
+        "addc.cc.u32 %3, %3, %12;\n\t"
+        "addc.cc.u32 %4, %4, %13;\n\t"
+        "addc.cc.u32 %5, %5, %14;\n\t"
+        "addc.cc.u32 %6, %6, %15;\n\t"
+        "addc.cc.u32 %7, %7, %16;\n\t"
+        "addc.u32 %8, %8, 0;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8])
+        : "r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(x4), "r"(x5), "r"(x6), "r"(x7));
+}
+
+// t[0..8] -= (x0, ..., x7, 0), modulo 2^288
+__device__ __forceinline__ void p256_sub8(uint32_t* t, uint32_t x0, uint32_t x1, uint32_t x2,
+                                          uint32_t x3, uint32_t x4, uint32_t x5, uint32_t x6,
+                                          uint32_t x7) {
+    asm("sub.cc.u32 %0, %0, %9;\n\t"
+        "subc.cc.u32 %1, %1, %10;\n\t"
+        "subc.cc.u32 %2, %2, %11;\n\t"
+        "subc.cc.u32 %3, %3, %12;\n\t"
+        "subc.cc.u32 %4, %4, %13;\n\t"
+        "subc.cc.u32 %5, %5, %14;\n\t"
+        "subc.cc.u32 %6, %6, %15;\n\t"
+        "subc.cc.u32 %7, %7, %16;\n\t"
+        "subc.u32 %8, %8, 0;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8])
+        : "r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(x4), "r"(x5), "r"(x6), "r"(x7));
+}
+
+// t[0..8] = t[0..7] + h (2^224 - 2^192 - 2^96 + 1) for h = t[8], any word:
+// h (2^256 mod p) < 2^256, so the result is below 2^257.  The new top word
+// is its own early-clobber output: written while h is still to be read, it
+// must not share h's register (nvcc gives an input the register of an
+// in-out operand that holds the same value).
+__device__ __forceinline__ void p256_fold(uint32_t* t) {
+    uint32_t top;
+    asm("add.cc.u32 %0, %0, %9;\n\t"
+        "addc.cc.u32 %1, %1, 0;\n\t"
+        "addc.cc.u32 %2, %2, 0;\n\t"
+        "addc.cc.u32 %3, %3, 0;\n\t"
+        "addc.cc.u32 %4, %4, 0;\n\t"
+        "addc.cc.u32 %5, %5, 0;\n\t"
+        "addc.cc.u32 %6, %6, 0;\n\t"
+        "addc.cc.u32 %7, %7, %9;\n\t"
+        "addc.u32 %8, 0, 0;\n\t"
+        "sub.cc.u32 %3, %3, %9;\n\t"
+        "subc.cc.u32 %4, %4, 0;\n\t"
+        "subc.cc.u32 %5, %5, 0;\n\t"
+        "subc.cc.u32 %6, %6, %9;\n\t"
+        "subc.cc.u32 %7, %7, 0;\n\t"
+        "subc.u32 %8, %8, 0;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "=&r"(top)
+        : "r"(t[8]));
+    t[8] = top;
+}
+
+// c[0..15] = a * b for a, b < 2^256 (limbs 0..7): operand scanning, 64-bit
+// accumulators (one IMAD.WIDE and an add a step, as in fe_mont_mul)
+__device__ __forceinline__ void p256_wide_mul(uint32_t* c, const uint32_t* a, const uint32_t* b) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        uint64_t t = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            t += (uint64_t)a[j] * b[i] + c[i + j];
+            c[i + j] = (uint32_t)t;
+            t >>= 32;
+        }
+        c[i + 8] = (uint32_t)t;
+    }
+}
+
+// r = c mod p, canonical, for c < 2^512 (c[0..15])
+__device__ __forceinline__ void p256_reduce(Fe r, const uint32_t* c) {
+    uint32_t t[9] = {c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], 0u};  // s1
+    p256_add8(t, 0u, 0u, 0u, c[11], c[12], c[13], c[14], c[15]);    // s2
+    p256_add8(t, 0u, 0u, 0u, c[11], c[12], c[13], c[14], c[15]);    // s2
+    p256_add8(t, 0u, 0u, 0u, c[12], c[13], c[14], c[15], 0u);       // s3
+    p256_add8(t, 0u, 0u, 0u, c[12], c[13], c[14], c[15], 0u);       // s3
+    p256_add8(t, c[8], c[9], c[10], 0u, 0u, 0u, c[14], c[15]);      // s4
+    p256_add8(t, c[9], c[10], c[11], c[13], c[14], c[15], c[13], c[8]);  // s5
+    p256_sub8(t, c[11], c[12], c[13], 0u, 0u, 0u, c[8], c[10]);     // s6
+    p256_sub8(t, c[12], c[13], c[14], c[15], 0u, 0u, c[9], c[11]);  // s7
+    p256_sub8(t, c[13], c[14], c[15], c[8], c[9], c[10], 0u, c[12]);  // s8
+    p256_sub8(t, c[14], c[15], 0u, c[9], c[10], c[11], 0u, c[13]);  // s9
+    // + 5p, top word 4
+    asm("add.cc.u32 %0, %0, 0xfffffffb;\n\t"
+        "addc.cc.u32 %1, %1, 0xffffffff;\n\t"
+        "addc.cc.u32 %2, %2, 0xffffffff;\n\t"
+        "addc.cc.u32 %3, %3, 0x00000004;\n\t"
+        "addc.cc.u32 %4, %4, 0x00000000;\n\t"
+        "addc.cc.u32 %5, %5, 0x00000000;\n\t"
+        "addc.cc.u32 %6, %6, 0x00000005;\n\t"
+        "addc.cc.u32 %7, %7, 0xfffffffb;\n\t"
+        "addc.u32 %8, %8, 0x00000004;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8]));
+    p256_fold(t);  // t < 2p, t[8] in {0, 1}
+    fe_reduce_once(r, t, 0u, ZK_MODS[ZK_P256_P]);
+}
+
+// r = a * b mod p (a, b canonical, standard form)
+__device__ __forceinline__ void fe_mul_p256(Fe r, const Fe a, const Fe b) {
+    uint32_t c[16];
+    p256_wide_mul(c, a, b);
+    p256_reduce(r, c);
 }

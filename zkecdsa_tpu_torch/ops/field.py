@@ -30,14 +30,17 @@ canonical values, at the function boundary.
 
 Kernel wrappers
 ---------------
-:func:`field_mul` (``csrc/field.cu``); :func:`ring_fold` (``csrc/field.cu``),
-the GK ring contraction in one launch; :func:`field_sum` (``csrc/field.cu``),
-the sum over a leading axis that folds the sharded GK partials.  A CPU
-tensor takes the plain version; any other tensor launches the kernel or
-raises.
+:func:`field_mul` (``csrc/field.cu``) and its chain form
+:func:`field_mul_chain`; :func:`ring_fold` (``csrc/field.cu``), the GK ring
+contraction in one launch; :func:`field_sum` (``csrc/field.cu``), the sum
+over a leading axis that folds the sharded GK partials; :func:`field_plan`,
+their launch geometry.  A CPU tensor takes the plain version; any other
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -53,7 +56,12 @@ __all__ = [
     "TOM_N",
     "WAR_P",
     "NLIMBS",
+    "FieldPlan",
+    "field_plan",
     "field_mul",
+    "field_mul_plain",
+    "field_mul_chain",
+    "field_mul_chain_plain",
     "field_sum",
     "field_sum_plain",
     "ring_fold",
@@ -414,13 +422,60 @@ def field_mul_plain(f: FieldT, a, b, d=None, e=None) -> torch.Tensor:
     return f.canon(w).expand(shape)
 
 
+SUM_ROW_MAX_D = 8  # field_sum: a thread a row up to this many terms, a block a row past them
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldPlan:
+    """Launch geometry of the field kernels (``csrc/field.cu``):
+    ``threads`` a block, and ``lanes`` threads a row: 1 for a thread a row
+    (``field_mul``, its chain form, ``field_sum`` up to SUM_ROW_MAX_D
+    terms), else a block of ``lanes`` threads a row (``field_sum`` past
+    them)."""
+
+    threads: int
+    lanes: int = 1
+
+
+def field_plan(rows: int, sms: int, terms: int = 1) -> FieldPlan:
+    """The geometry for ``rows`` output rows of ``terms`` terms each on a
+    card of ``sms`` SMs.  A thread a row: the largest block of 256, 128 or
+    64 threads that still gives every SM two blocks, else 32, so that the
+    mesh's calls of 128-2048 rows run on 4-64 SMs, not 1-8 (one SM's
+    schedulers would serialise what the card can run side by side).  Past
+    SUM_ROW_MAX_D terms: a block a row, a lane a share of about 4 terms
+    (the power of two >= terms / 4, within 32-512: at [2048, 1] 512 lanes
+    took 2.9 us on the H100, 256 3.4, 1024 3.4, 128 4.7;
+    tools/torch_field_probe.py, PERF.md)."""
+    if terms > SUM_ROW_MAX_D:
+        lanes = min(512, max(32, 1 << (-(-terms // 4) - 1).bit_length()))
+        return FieldPlan(threads=lanes, lanes=lanes)
+    for threads in (256, 128, 64):
+        if -(-rows // threads) >= 2 * sms:
+            return FieldPlan(threads=threads)
+    return FieldPlan(threads=32)
+
+
+_SMS: dict[torch.device, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The SM count of a CUDA device (read once)."""
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def field_mul(f: FieldT, a, b, d=None, e=None) -> torch.Tensor:
     """c = a*b mod p, or the pair form c = a*b + d*e mod p, over canonical
     [..., 9] limbs (operands broadcast).
 
     Kernel ``csrc/field.cu`` (replaces ``zkecdsa_tpu/ops/pallas_field.py:183
-    pallas_mul``); bound by 32-bit integer multiply-adds.  A CPU tensor
-    takes the plain version."""
+    pallas_mul``): a thread a row in blocks of :func:`field_plan`'s size;
+    the P-256 prime (``P256_P``, ``TOM_N``) by Solinas reduction, the other
+    moduli by Montgomery products.  A CPU tensor takes the plain
+    version."""
     if a.device.type == "cpu":
         return field_mul_plain(f, a, b, d, e)
     ops = [a, b] if d is None else [a, b, d, e]
@@ -437,8 +492,10 @@ def field_mul(f: FieldT, a, b, d=None, e=None) -> torch.Tensor:
             args += [t.data_ptr(), s0, s1]
         else:
             args += [None, 0, 0]
+    # the x axis of the grid covers K: no wider a block than K needs
+    threads = min(field_plan(N * K, _sms(a.device)).threads, max(32, 1 << (K - 1).bit_length()))
     code = lib.zk_field_mul(
-        f.mod_id, N, K, *args, out.data_ptr(),
+        f.mod_id, N, K, *args, out.data_ptr(), threads,
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     _build.check(code, "zk_field_mul")
@@ -447,6 +504,44 @@ def field_mul(f: FieldT, a, b, d=None, e=None) -> torch.Tensor:
 
 
 field_mul.launches = 0
+
+
+def field_mul_chain_plain(f: FieldT, values: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`field_mul_chain`, on any
+    device: a loop of :func:`field_mul_plain` over the factors."""
+    out = values.clone()
+    for j in range(factors.shape[1]):
+        out = field_mul_plain(f, out, factors[:, j])
+    return out
+
+
+def field_mul_chain(f: FieldT, values: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """values[r] * prod_j factors[r, j] mod p: values [R, 9] and factors
+    [R, n, 9] canonical -> [R, 9] canonical (n = 0 gives the values).
+
+    ``field_mul``'s chain form, one launch of ``csrc/field.cu`` (replaces
+    the ``fo.mul`` loop of ``zkecdsa_tpu/parallel/mesh.py:122-125``, n
+    launches through HBM): a thread a row keeps its running product in
+    registers.  Its launches count in ``field_mul.launches``.  A CPU
+    tensor takes :func:`field_mul_chain_plain`."""
+    if values.device.type == "cpu":
+        return field_mul_chain_plain(f, values, factors)
+    lib = _build.load()
+    _check_limbs(values, factors)
+    if values.dim() != 2 or factors.dim() != 3 or factors.shape[0] != values.shape[0]:
+        raise ValueError(
+            f"expected values [R, 9] and factors [R, n, 9], got {tuple(values.shape)}, {tuple(factors.shape)}"
+        )
+    values, factors = values.contiguous(), factors.contiguous()
+    R, n = factors.shape[0], factors.shape[1]
+    out = torch.empty_like(values)
+    code = lib.zk_field_mul_chain(
+        f.mod_id, R, n, values.data_ptr(), factors.data_ptr(), out.data_ptr(),
+        field_plan(R, _sms(values.device)).threads, torch.cuda.current_stream(values.device).cuda_stream,
+    )
+    _build.check(code, "zk_field_mul_chain")
+    field_mul.launches += 1
+    return out
 
 
 def ring_fold_plain(values: torch.Tensor, f: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
@@ -526,8 +621,10 @@ def field_sum(f: FieldT, x: torch.Tensor) -> torch.Tensor:
 
     Kernel ``csrc/field.cu`` (replaces the ``fo.add`` folds of
     ``zkecdsa_tpu/parallel/mesh.py:130-136``, ``:204-207`` and
-    ``:255-258``, which sum the ring-sharded GK partials); bound by the
-    bytes it reads.  A CPU tensor takes :func:`field_sum_plain`."""
+    ``:255-258``, which sum the ring-sharded GK partials): a thread a row
+    for up to SUM_ROW_MAX_D terms, else a block a row with a shuffle tree
+    (:func:`field_plan`); bound by the bytes it reads.  A CPU tensor takes
+    :func:`field_sum_plain`."""
     if x.device.type == "cpu":
         return field_sum_plain(f, x)
     lib = _build.load()
@@ -535,9 +632,11 @@ def field_sum(f: FieldT, x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 3:
         raise ValueError(f"expected [D, R, {NLIMBS}] limbs, got {tuple(x.shape)}")
     x = x.contiguous()
-    out = torch.empty((x.shape[1], NLIMBS), dtype=torch.int32, device=x.device)
+    D, R = x.shape[0], x.shape[1]
+    plan = field_plan(R, _sms(x.device), D)
+    out = torch.empty((R, NLIMBS), dtype=torch.int32, device=x.device)
     code = lib.zk_field_sum(
-        f.mod_id, x.shape[0], x.shape[1], x.data_ptr(), out.data_ptr(),
+        f.mod_id, D, R, x.data_ptr(), out.data_ptr(), plan.lanes, plan.threads,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(code, "zk_field_sum")

@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.curve_ops import msm, sum_reduce
-from ..ops.field import NLIMBS, TOM_N, field_mul, field_sum, ring_fold
+from ..ops.field import NLIMBS, TOM_N, field_mul, field_mul_chain, field_sum, ring_fold
 
 __all__ = [
     "Mesh",
@@ -187,16 +187,14 @@ def sharded_gk_total(mesh: Mesh, f_or_xf: torch.Tensor, vec: torch.Tensor) -> to
     """sum_i vec_i * prod_j f_or_xf[i, j] mod the Tom-256 order (the GK
     verifier's recombination, gk.ts:239-250) with the ring elements
     sharded over ``ring``: factors [RING, n, 9], values [RING, 9] ->
-    the total [9], on every rank.  Each rank multiplies its shard's
-    factors (``field_mul``), sums its terms (``field_sum``); the partial
-    sums meet in one gather and one ``field_sum``."""
+    the total [9], on every rank.  Each rank multiplies each of its
+    shard's values by its n factors in one launch (``field_mul_chain``),
+    sums its terms (``field_sum``); the partial sums meet in one gather
+    and one ``field_sum``."""
     dev = mesh.device
     factors = shard_batch(mesh, f_or_xf, "ring").to(dev)
     values = shard_batch(mesh, vec, "ring").to(dev)
-    prod = factors[:, 0]
-    for j in range(1, factors.shape[1]):
-        prod = field_mul(fo, prod, factors[:, j])
-    local = field_sum(fo, field_mul(fo, values, prod)[:, None])  # [1, 9]
+    local = field_sum(fo, field_mul_chain(fo, values, factors)[:, None])  # [1, 9]
     return field_sum(fo, gather(mesh, local[None], "ring"))[0]
 
 
@@ -272,8 +270,9 @@ def sharded_gk_recombine(
     ``ring_axis`` (and, optionally, the instances over ``dp_axis``):
     [N, 9] canonical, or this rank's dp block.  Each rank runs
     ``ring_fold`` over its slice and the low index bits, multiplies by the
-    high bits' factors its ring coordinate selects (``field_mul``), and
-    the partials meet in one gather and one ``field_sum``.  Equal to
+    high bits' factors its ring coordinate selects (stacked, one
+    ``field_mul_chain`` launch for any ring size), and the partials meet
+    in one gather and one ``field_sum``.  Equal to
     ``protocol.batch_gk.gk_recombine_device``."""
     dev = mesh.device
     if dp_axis is not None:
@@ -281,8 +280,9 @@ def sharded_gk_recombine(
     f, xf = f.to(dev), xf.to(dev)
     vals, n_low, c = _ring_shard(mesh, values, ring_axis)
     local = ring_fold(vals, f[:, :n_low], xf[:, :n_low])
-    for j in range(n_low, f.shape[1]):
-        local = field_mul(fo, local, f[:, j] if (c >> (j - n_low)) & 1 else xf[:, j])
+    if f.shape[1] > n_low:
+        high = [f[:, j] if (c >> (j - n_low)) & 1 else xf[:, j] for j in range(n_low, f.shape[1])]
+        local = field_mul_chain(fo, local, torch.stack(high, 1))
     return field_sum(fo, gather(mesh, local[None], ring_axis))
 
 

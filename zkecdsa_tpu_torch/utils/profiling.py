@@ -5,6 +5,10 @@
   activity) writing a Chrome trace file (chrome://tracing, Perfetto);
   :func:`device_time` reads such a file: the device's busy time (the
   union of its kernel and copy intervals) and every kernel's time;
+  :func:`kernel_launch_us` and :func:`case_launch_us` pick kernels'
+  launches out of it, and :func:`kernel_device_ms` traces loops of calls
+  on the card and gives their kernels' own time a call, apart from the
+  host's time around them;
 * :class:`StageTimer` - per-stage wall-clock accounting for the batched
   pipeline.  Work on a CUDA device is asynchronous, so with a CUDA
   ``device`` each stage boundary synchronises it: a stage's time is then
@@ -25,7 +29,10 @@ from typing import Callable
 
 import torch
 
-__all__ = ["Trace", "trace", "device_time", "StageTimer", "stages", "kernel_ns_per_op"]
+__all__ = [
+    "Trace", "trace", "device_time", "kernel_launch_us", "case_launch_us", "kernel_device_ms", "StageTimer", "stages",
+    "kernel_ns_per_op",
+]
 
 # Chrome-trace categories of work on the device
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -87,6 +94,78 @@ def device_time(path: str) -> tuple[float, list[tuple[float, str, float]]]:
             busy += b - max(a, end)
             end = b
     return busy, sorted(kernels)
+
+
+def kernel_launch_us(kernels, names) -> list[float]:
+    """The us of each launch, in order, among ``kernels`` (the list
+    :func:`device_time` returns) of the ``__global__`` functions
+    ``names``: a trace names a kernel by its demangled signature, so a
+    name counts where it is followed by ``<`` (a template) or ``(``."""
+    return [us for _, name, us in kernels
+            if any(f"{g}<" in name or f"{g}(" in name for g in names)]
+
+
+def case_launch_us(path: str, labels, names) -> list[list[float]]:
+    """From a Chrome trace of several cases, each run inside a
+    ``torch.profiler.record_function`` range on the host labelled
+    ``labels[i]``: the us of each launch of case i's kernels ``names[i]``.
+    A kernel belongs to the range that holds its launch call (the CUDA
+    runtime or driver event of the same correlation id), so a launch the
+    trace lost costs its case one sample and moves nothing into another
+    case.  Raises if a label has no range."""
+    with open(path) as fh:
+        events = json.load(fh)
+    events = events.get("traceEvents", []) if isinstance(events, dict) else events
+    spans = [ev for ev in events if ev.get("ph") == "X"]
+    windows = {ev["name"]: (float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0)))
+               for ev in spans if ev.get("cat") == "user_annotation" and ev.get("name") in labels}
+    missing = [lab for lab in labels if lab not in windows]
+    if missing:
+        raise RuntimeError(f"the trace {path} has no range {missing}")
+    launched = {ev["args"]["correlation"]: float(ev["ts"]) for ev in spans
+                if ev.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in ev.get("args", {})}
+    out = [[] for _ in labels]
+    for ev in spans:
+        if ev.get("cat") != "kernel":
+            continue
+        t = launched.get(ev.get("args", {}).get("correlation"))
+        for i, lab in enumerate(labels):
+            lo, hi = windows[lab]
+            if t is not None and lo <= t <= hi and kernel_launch_us([(0.0, ev["name"], 0.0)], names[i]):
+                out[i].append(float(ev.get("dur", 0.0)))
+    return out
+
+
+def kernel_device_ms(cases, reps: int, logdir: str) -> list[float]:
+    """The device ms a call of each case (``fn``, kernel names, launches
+    a call): after a warm-up call of each, one :func:`trace` (into
+    ``logdir``) of ``reps`` calls of each case in turn, each case in a
+    range of its own (:func:`case_launch_us`); a case's time is its
+    median launch times its launches a call.  That is the kernels' own
+    time on the card, which a CUDA-event time of back-to-back calls adds
+    the host's time between launches to.  A trace may lose launches (on
+    an NVIDIA H100 under PyTorch's CUDA build: all of one trace's among a
+    dozen, one of 240 in another), so a case needs half its launches, not
+    all.  Raises without a card, or if a case has fewer."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_device_ms times CUDA work: CUDA is not available")
+    for fn, _, _ in cases:
+        fn()
+    torch.cuda.synchronize()
+    labels = [f"kernel_device_ms case {i}" for i in range(len(cases))]
+    with trace(logdir) as tr:
+        for label, (fn, _, _) in zip(labels, cases):
+            with torch.profiler.record_function(label):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+    got = case_launch_us(tr.path, labels, [names for _, names, _ in cases])
+    out = []
+    for us, (_, names, n) in zip(got, cases):
+        if 2 * len(us) < n * reps:
+            raise RuntimeError(f"the trace {tr.path} holds {len(us)} of the {n * reps} launches of {list(names)}")
+        out.append(statistics.median(us) * n / 1e3)
+    return out
 
 
 class StageTimer:
