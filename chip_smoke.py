@@ -86,6 +86,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``straus_msm`` against them (the Straus-bucket crossover); the bucket
    kernels on ``bucket_plan``'s geometry and on each form it did not
    take (forced), and on the skewed and empty cases (``BUCKET_EDGE``);
+   ``msm_ladder`` at ``LADDER`` and on its edge rows (``LADDER_EDGE``),
+   with the kernel's device time apart from its tree;
 4b. the verifier: ``BatchVerifier.verify`` on those 256 proofs, one
    warm-up and three timed reps, launch counts over the first; one more
    verify traced as the prove was; ``verify.host_prep`` beside its share
@@ -138,6 +140,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import multiprocessing
@@ -185,6 +188,7 @@ BUCKET = (("p256", 256, 48, 5, 256), ("tomEdwards256", 256, 760, 5, 8),
 BUCKET_EDGE = (("p256", 64, 48, 5, 16), ("tomEdwards256", 4, 8192, 6, 2))
 BUCKET_EDGE_CASES = ("one_bucket", "top_window", "empty")
 LADDER = (4, 1024)  # msm_ladder [R, T] on both curves
+LADDER_EDGE = ((3, 37), (4, 1))  # msm_ladder's edge rows: a ragged shape, then T = 1
 # field_sum [D, R] at the mesh path's calls: the prover's d-values (2 ring
 # ranks, N_l * n = 128 * 12), the verifier's recombination, and
 # sharded_gk_total's local sum (4096 / 2 ring elements) and its gathered
@@ -1175,11 +1179,23 @@ def _msm_inputs(ops, g, R, T, rs, dev):
     return P, scs
 
 
+def _ladder_edge_inputs(ops, g, R, T, rs, dev):
+    """msm_ladder's edge rows (R >= 3) from ``tests/torch_ladder_edges.py``
+    (every bit zero, every bit one, the identity point as a term; the
+    tests' definition), as random projective representatives."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_ladder_edges import ladder_edge_rows
+
+    pts, scs, _ = ladder_edge_rows(g, rs, R, T)
+    return _rescaled(ops, pts, R * T, rs, dev).reshape(R, T, ops.NCOORD, -1), scs
+
+
 def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
     """Phase 3, slice 3: ``bucket_sums`` and ``bucket_fold`` at the bucket
     backend's shapes (each against its plain version, and the two
     together against ``straus_msm`` on every row, the crossover),
-    ``msm_ladder`` against its plain version and ``straus_msm``, and
+    ``msm_ladder`` against its plain version and ``straus_msm`` (each
+    record with the kernel's ``device_ms`` apart from its tree), and
     ``straus_msm`` at the scalar verifier's one-row shapes against the
     plain ``msm``.  Returns ({name: [shape record, ...]}, crossover)."""
     import numpy as np
@@ -1210,6 +1226,7 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
         n_windows,
         window_digits,
     )
+    from zkecdsa_tpu_torch.utils.profiling import kernel_device_ms
 
     curves = {"p256": (p256_ops, p256, MM_WEIER_ADD, MM_WEIER_DBL),
               "tomEdwards256": (tom_ops, tomEdwards256, MM_EDW_ADD, MM_EDW_DBL)}
@@ -1350,21 +1367,33 @@ def check_msm_kernels(dev, rs, log) -> tuple[dict, list]:
                 + json.dumps({k: round(v, 4) for k, v in forms.items()}))
 
     # -- msm_ladder on both curves, held against its plain version (the
-    #    same order: exact) and against straus_msm (as group elements) ----
-    R, T = LADDER
+    #    same order: exact) and against straus_msm (as group elements): at
+    #    LADDER, then the edge rows at LADDER_EDGE's ragged shape and at
+    #    T = 1; the kernel's device ms apart from its tree from one trace --
+    traced = []
     for name, (ops, g, mm_add, mm_dbl) in curves.items():
-        P, scs = _msm_inputs(ops, g, R, T, rs, dev)
-        bits = torch.from_numpy(scalar_bits([s for row in scs for s in row]).reshape(R, T, 256)).to(dev)
-        call = f"{name} [{R}, {T}]"
-        got = msm_ladder(ops, P, bits)
-        plain, plain_ms = _once_ms(lambda: ops.msm_ladder(P, bits))
-        err = _exact(f"msm_ladder {call}", [(got, plain)])
-        _affine_exact(f"msm_ladder vs straus_msm {call}", ops, got, straus_msm(ops, P, nibbles(scs, R, T)))
-        ms = _cuda_ms(lambda: msm_ladder(ops, P, bits), 3)
-        record("msm_ladder", call + " (with its tree_sum tree)", err, ms, plain_ms,
-               _bound(R * T * 256 * (mm_dbl + mm_add), R * T * (ops.NCOORD * pb + 256) + R * ops.NCOORD * pb))
-        log(f"msm_ladder {call}: kernel {ms:.3f} ms (with its tree_sum tree), plain {plain_ms:.1f} ms, "
-            f"exact, = straus_msm")
+        for R, T in (LADDER,) + LADDER_EDGE:
+            edge = (R, T) != LADDER
+            P, scs = (_ladder_edge_inputs if edge else _msm_inputs)(ops, g, R, T, rs, dev)
+            bits = torch.from_numpy(scalar_bits([s for row in scs for s in row]).reshape(R, T, 256)).to(dev)
+            call = f"{name} [{R}, {T}]" + (" (edge rows)" if edge else "")
+            got = msm_ladder(ops, P, bits)
+            plain, plain_ms = _once_ms(lambda: ops.msm_ladder(P, bits))
+            err = _exact(f"msm_ladder {call}", [(got, plain)])
+            _affine_exact(f"msm_ladder vs straus_msm {call}", ops, got, straus_msm(ops, P, nibbles(scs, R, T)))
+            if edge and not bool(ops.is_identity(got[0])):
+                raise AssertionError(f"msm_ladder {call}: the row of zero bits is not the identity")
+            fn = functools.partial(msm_ladder, ops, P, bits)
+            ms = _cuda_ms(fn, 3)
+            record("msm_ladder", call + " (with its tree_sum tree)", err, ms, plain_ms,
+                   _bound(R * T * 256 * (mm_dbl + mm_add), R * T * (ops.NCOORD * pb + 256) + R * ops.NCOORD * pb))
+            traced.append((shapes["msm_ladder"][-1], fn))
+    dms = kernel_device_ms([(fn, ["msm_ladder_kernel"], 1) for _, fn in traced], 3,
+                           os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace"))
+    for (rec, _), d in zip(traced, dms):
+        rec["device_ms"] = d
+        log(f"msm_ladder {rec['call']}: a team of four lanes a term: kernel {d:.4f} ms device (apart from its "
+            f"tree), {rec['ms']:.3f} ms events with its tree; plain {rec['plain_ms']:.1f} ms; exact, = straus_msm")
 
     # -- straus_msm at path B's one-row shapes (msm: one proof's MultiMult),
     #    against the plain msm, the reference's per-term schedule ----------

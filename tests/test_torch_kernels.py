@@ -994,6 +994,36 @@ def _msm_rows(g, rs, N, T):
     return pts, scs
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,g", CURVES, ids=lambda v: getattr(v, "name", ""))
+def test_msm_ladder_edge_rows(ops, g, cuda):
+    """msm_ladder on the edge rows (every bit zero, every bit one, the
+    identity point as a term) at a ragged [3, 37], whose last block holds
+    idle teams, and at T = 1: exactly the plain version, the same group
+    elements as straus_msm, the all-zero row the identity; one launch a
+    call; bits whose rows start off a 16-byte boundary give the same
+    result."""
+    from torch_ladder_edges import ladder_edge_rows
+
+    rs = np.random.RandomState(98)
+    for R, T in ((3, 37), (4, 1)):
+        pts, scs, bits = ladder_edge_rows(g, rs, R, T)
+        P = ops.pack_points(pts, cuda).reshape(R, T, ops.NCOORD, -1)
+        b = torch.from_numpy(bits).to(cuda)
+        before = tcurve.msm_ladder.launches
+        got = tcurve.msm_ladder(ops, P, b)
+        assert tcurve.msm_ladder.launches == before + 1
+        assert torch.equal(got, ops.msm_ladder(P, b))
+        assert bool(ops.is_identity(got[0]))
+        flat = [s for row in scs for s in row]
+        digits = torch.from_numpy(tcurve.nibble_digits(flat).astype(np.uint8).reshape(R, T, 64)).to(cuda)
+        assert _affine_equal(ops, got, tcurve.straus_msm(ops, P, digits))
+        off = torch.empty(b.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(b.shape).copy_(b)
+        assert off.data_ptr() % 16 != 0
+        assert torch.equal(tcurve.msm_ladder(ops, P, off), got)
+    torch.cuda.synchronize()
+
+
 def _bucket_case(g, rs, case, window):
     """(points, scalar rows) of one bucket-kernel case; points cycle
     through a pool of 16 host points (the large cases stay quick)."""
@@ -1080,7 +1110,7 @@ def test_msm_ladder_and_msm_vs_plain(ops, g, cuda):
     flat = [s for row in scs for s in row]
     bits = torch.from_numpy(tcurve.scalar_bits(flat).reshape(N, T, 256)).to(cuda)
     got = tcurve.msm_ladder(ops, P, bits)
-    # one thread per term in the plain version's order, then its tree
+    # a team of four lanes a term in the plain version's order, then its tree
     assert torch.equal(got, ops.msm_ladder(P, bits))
     digits = torch.from_numpy(tcurve.nibble_digits(flat).astype(np.uint8).reshape(N, T, 64)).to(cuda)
     assert _affine_equal(ops, got, tcurve.straus_msm(ops, P, digits))

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_ladder_edges import ladder_edge_rows
 
 from zkecdsa_tpu import ecdsa as jecdsa
 from zkecdsa_tpu.curves import multimult as jmm
@@ -320,6 +321,44 @@ def test_msm_and_ladder_match_reference(name):
     jlad = jops.msm_ladder(jP[None], jnp.asarray(bits)[None])
     assert _port_coords(ops, lad) == _coords(jops, jlad)
     assert ops.unpack_points(lad)[0].eq(_host_sum(g, pts, scs))
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_ladder_edge_rows_match_reference(name):
+    """The plain ``msm_ladder`` on its edge rows, stacked as the rows of
+    one call (the JAX side compiles once): every bit zero (the identity),
+    every bit one, the identity point as a term with every bit one; the
+    reference's canonical projective coordinates exactly, and the host
+    sums."""
+    ops, jops, g = CURVES[name]
+    R, T = 3, 4
+    pts, scs, bits = ladder_edge_rows(g, np.random.RandomState(16), R, T)
+    P = ops.pack_points(pts).reshape(R, T, ops.NCOORD, -1)
+    jP = jnp.asarray(jops.pack_points(pts))
+    got = tcurve.msm_ladder(ops, P, torch.from_numpy(bits))
+    ref = jops.msm_ladder(jP.reshape((R, T) + jP.shape[1:]), jnp.asarray(bits))
+    assert _port_coords(ops, got) == _coords(jops, ref)
+    assert bool(ops.is_identity(got[0]))
+    host = ops.unpack_points(got)
+    for r in range(R):
+        row = pts[r * T : (r + 1) * T]
+        assert host[r].eq(_host_sum(g, row, [s % g.order for s in scs[r]]))
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_ladder_edge_rows_one_term_match_host(name):
+    """The plain ``msm_ladder`` at T = 1 (the kernel's tree has one term,
+    no add) on the edge rows: each row the host's scalar multiple of its
+    one point; the all-zero row and the identity point give the
+    identity."""
+    ops, _, g = CURVES[name]
+    R, T = 4, 1
+    pts, scs, bits = ladder_edge_rows(g, np.random.RandomState(17), R, T)
+    got = ops.unpack_points(tcurve.msm_ladder(ops, ops.pack_points(pts).reshape(R, T, ops.NCOORD, -1),
+                                              torch.from_numpy(bits)))
+    for r in range(R):
+        assert got[r].eq(pts[r].mul(g.new_scalar(scs[r][0] % g.order)))
+    assert got[0].is_identity() and got[2].is_identity()
 
 
 @pytest.mark.parametrize("name", list(CURVES))

@@ -1,6 +1,6 @@
 // Shared pieces of the comb kernels (comb.cu, comb4.cu): a row's digits
-// read 16 bytes at a time, and the P-256 comb scan of one row by a team of
-// four lanes or by one lane.
+// read 16 bytes at a time (also ladder.cu's bit bytes), and the P-256 comb
+// scan of one row by a team of four lanes or by one lane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,7 +16,8 @@ constexpr int COMB_THREADS = 128;
 // (no indexing into registers, no unrolled windows).  The row starts on a
 // 16-byte boundary and its windows are taken in order from 0.  Byte j is
 // window j's digit: an LSB-first byte of the scalar for the 8-bit combs
-// (comb_mixed, comb_weier), an MSB-first nibble for comb4.
+// (comb_mixed, comb_weier), an MSB-first nibble for comb4, an MSB-first
+// bit for msm_ladder.
 struct Digits {
     const uint4* src;
     uint32_t w0, w1, w2, w3;

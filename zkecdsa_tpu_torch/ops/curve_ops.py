@@ -646,7 +646,8 @@ def _check_points(ops: CurveOps, *ts: torch.Tensor) -> None:
 
 def _aligned(d: torch.Tensor) -> torch.Tensor:
     """Contiguous digits whose rows start on 16-byte boundaries: the comb
-    kernels load a row's digits 16 bytes at a time (rows of 32 or 64)."""
+    kernels and msm_ladder load a row's digits 16 bytes at a time (rows of
+    32, 64 or 256)."""
     d = d.contiguous()
     return d if d.data_ptr() % 16 == 0 else d.clone()
 
@@ -999,11 +1000,12 @@ def msm_ladder(ops: CurveOps, points: torch.Tensor, bits: torch.Tensor) -> torch
     [..., C, 9].
 
     Kernel ``csrc/ladder.cu`` (replaces ``zkecdsa_tpu/ops/curve_ops.py:373
-    msm_ladder``): one thread per term runs the 256 steps in the plain
-    version's order; the terms of a row are then tree-summed with
-    :func:`sum_reduce`, the plain version's tree, so the projective
-    coordinates are the plain version's.  A CPU tensor takes
-    ``ops.msm_ladder``."""
+    msm_ladder``): a team of four lanes a term runs its 256 steps (a
+    doubling, an add, a select on the bit) in the plain version's order,
+    reading the term's bits 16 bytes at a time; the terms of a row are
+    then tree-summed with :func:`sum_reduce`, the plain version's tree, so
+    the projective coordinates are the plain version's.  A CPU tensor
+    takes ``ops.msm_ladder``."""
     if points.device.type == "cpu":
         return ops.msm_ladder(points, bits)
     lib = _build.load()
@@ -1014,14 +1016,15 @@ def msm_ladder(ops: CurveOps, points: torch.Tensor, bits: torch.Tensor) -> torch
         )
     if bits.device != points.device:
         raise ValueError("points and bits on different devices")
-    points, bits = points.contiguous(), bits.contiguous()
+    points, bits = points.contiguous(), _aligned(bits)
+    B = bits.shape[:-1].numel()
     terms = torch.empty_like(points)
-    code = lib.zk_msm_ladder(
-        ops.curve_id, bits.shape[:-1].numel(), points.data_ptr(), bits.data_ptr(),
-        terms.data_ptr(), _stream(points),
-    )
-    _build.check(code, "zk_msm_ladder")
-    msm_ladder.launches += 1
+    if B:
+        code = lib.zk_msm_ladder(
+            ops.curve_id, B, points.data_ptr(), bits.data_ptr(), terms.data_ptr(), _stream(points),
+        )
+        _build.check(code, "zk_msm_ladder")
+        msm_ladder.launches += 1
     return sum_reduce(ops, terms, axis=-3)
 
 
