@@ -1,0 +1,9 @@
+"""Proofs of all the window's prove batches over the window's wall time
+(host clock, from the window's start to the last batch's end, which ends
+in a synchronise of the card)."""
+
+
+def read(r):
+    if r.path != "prove" or r.window_s <= 0:
+        return None
+    return r.proofs / r.window_s
