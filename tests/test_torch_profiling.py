@@ -5,18 +5,30 @@ card), ``device_time`` reads the device's busy time and every kernel's
 time from such a file, ``kernel_launch_us`` picks one kernel's launches out
 of it (``case_launch_us``: case by case), ``kernel_device_ms`` and
 ``kernel_ns_per_op`` time a call on the card
-(from a trace, and with CUDA events)."""
+(from a trace, and with CUDA events); ``StageTimer``'s spans and counters,
+``tracing`` and the counting sites of the OS source, ``bignum.rnd`` and
+``serde.read_json``."""
 
+import contextlib
 import dataclasses
+import gc
 import json
+import time
+from pathlib import Path
 
 import pytest
 import torch
 
+from zkecdsa_tpu_torch.bignum import big as tbig
 from zkecdsa_tpu_torch.curves.instances import p256
 from zkecdsa_tpu_torch.ops import curve_ops as tcurve
+from zkecdsa_tpu_torch.serde import read_json, write_json
 from zkecdsa_tpu_torch.utils import config as tconfig
 from zkecdsa_tpu_torch.utils import profiling as tprof
+from zkecdsa_tpu_torch.utils import rng as trng
+from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList
+
+VEC = Path(__file__).resolve().parent / "vectors"
 
 # One intra-op thread: the suite runs several worker processes on the same
 # cores, and an oversubscribed OpenMP pool spins instead of working.
@@ -164,6 +176,224 @@ def test_kernel_device_ms_on_card(tmp_path):
     small = tcurve.p256_ops.pack_points([p256.generator()] * 32, "cuda")
     big = tcurve.p256_ops.pack_points([p256.generator()] * 65536, "cuda")
     ms = tprof.kernel_device_ms(
-        [(lambda: tcurve.ec_add(tcurve.p256_ops, P, P), ["ec_add_kernel"], 1) for P in (small, big)],
+        [(lambda P=P: tcurve.ec_add(tcurve.p256_ops, P, P), ["ec_add_kernel"], 1) for P in (small, big)],
         5, str(tmp_path))
     assert 0.0 < ms[0] < ms[1] < 1e3
+
+
+# ---- spans, counters and the installed tracer ----
+
+
+def _busy(ms: float) -> None:
+    t_end = time.perf_counter() + ms * 1e-3
+    while time.perf_counter() < t_end:
+        pass
+
+
+def test_spans_ids_parents_calls_and_self_time():
+    """Each span has its own id, its parent's id and the call id of the
+    tracing block it opened in (None outside any); a stage's self time is
+    its seconds less its children's; ``stages`` and ``counts`` keep
+    their meaning."""
+    t = tprof.StageTimer()
+    stage = tprof.stages(t)
+    for _ in range(2):
+        with tprof.tracing(t):
+            with stage("outer"):
+                _busy(2)
+                with stage("inner"):
+                    _busy(3)
+                with stage("inner"):
+                    _busy(1)
+    with stage("alone"):
+        pass
+    by_id = {s.id: s for s in t.spans}
+    assert len(by_id) == len(t.spans) == 7
+    outers = [s for s in t.spans if s.name == "outer"]
+    inners = [s for s in t.spans if s.name == "inner"]
+    assert [s.parent for s in outers] == [None, None]
+    assert all(by_id[s.parent].name == "outer" for s in inners)
+    assert outers[0].call is not None and outers[0].call != outers[1].call
+    for o in outers:
+        kids = [s for s in inners if s.parent == o.id]
+        assert len(kids) == 2 and {s.call for s in kids} == {o.call}
+        assert all(o.start_ns <= s.start_ns and s.end_ns <= o.end_ns for s in kids)
+    assert t.spans[-1].name == "alone" and t.spans[-1].call is None
+    kids_ns = sum(s.end_ns - s.start_ns for s in inners)
+    outer_ns = sum(s.end_ns - s.start_ns for s in outers)
+    assert t.self_s["outer"] == pytest.approx((outer_ns - kids_ns) * 1e-9)
+    assert t.stages["outer"] == pytest.approx(outer_ns * 1e-9)
+    assert t.self_s["inner"] == pytest.approx(t.stages["inner"])
+    assert t.self_s["outer"] >= 3.9e-3 and t.stages["inner"] >= 7.9e-3
+    assert t.counts == {"outer": 2, "inner": 4, "alone": 1}
+
+
+def test_counters_go_to_the_innermost_open_span():
+    """``count`` and a hot site's tally report to the innermost open span
+    of the installed timer: a tally when a span starts or ends, or when
+    the tracer is removed."""
+    tally = tprof.Tally("test.tally")
+    t = tprof.StageTimer()
+    stage = tprof.stages(t)
+    try:
+        with tprof.tracing(t):
+            tprof.count("test.n", 2)
+            tally.values[0] += 5  # before any span: charged when "a" starts
+            with stage("a"):
+                tprof.count("test.n")
+                tally.values[0] += 1  # charged to "b"'s parent when "b" starts
+                with stage("b"):
+                    tally.values[0] += 7
+                    tprof.count("test.n", 0.5)
+            tally.values[0] += 3  # charged when the tracer is removed
+        assert tally.values == [0]
+        assert t.counters == {
+            (None, "test.n"): 2, (None, "test.tally"): 8,
+            ("a", "test.n"): 1, ("a", "test.tally"): 1,
+            ("b", "test.tally"): 7, ("b", "test.n"): 0.5,
+        }
+        assert "test.tally" in t.report()
+    finally:
+        tprof._tallies.remove(tally)
+
+
+def test_tracing_nests_and_keeps_a_record_for_a_timer_without_count():
+    """An inner block installs its own timer and restores the outer one;
+    one ``gc.callbacks`` entry while any block is open; a timer without
+    ``count`` gets its spans and counters kept beside it
+    (``record_of``); ``current`` gives the installed timer."""
+
+    class Plain:  # a timer with stage() alone
+        def __init__(self):
+            self.names = []
+
+        @contextlib.contextmanager
+        def stage(self, name):
+            self.names.append(name)
+            yield
+
+    before = list(gc.callbacks)
+    outer, inner = Plain(), tprof.StageTimer()
+    assert tprof.TRACER is None and tprof.current() is None
+    with tprof.tracing(outer):
+        assert tprof.current() is outer and tprof.current(inner) is inner
+        with tprof.stages(outer)("o"):
+            with tprof.tracing(inner):
+                assert tprof.current() is inner
+                tprof.count("test.inner")
+                gc.collect(2)
+            tprof.count("test.outer")
+            assert len(gc.callbacks) == len(before) + 1
+    assert tprof.TRACER is None and gc.callbacks == before
+    kept = tprof.record_of(outer)
+    assert outer.names == ["o"] and [s.name for s in kept.spans] == ["o"]
+    assert kept.counters == {("o", "test.outer"): 1}
+    assert inner.counters[(None, "test.inner")] == 1
+    assert inner.counters[(None, "gc.collections.2")] >= 1 and inner.counters[(None, "gc.s")] > 0
+    assert tprof.record_of(inner) is None and tprof.record_of(tprof.StageTimer()) is None
+    with tprof.tracing(None) as got:
+        assert got is None and tprof.TRACER is None
+
+
+class _CountingSource(trng.RandomSource):
+    """The default source, with its own tallies of calls and bytes."""
+
+    def __init__(self):
+        self.calls = self.bytes = 0
+
+    def random_bytes(self, n):
+        self.calls += 1
+        self.bytes += n
+        return super().random_bytes(n)
+
+
+def test_os_source_counters_equal_a_counting_wrapper():
+    """``rng.os_calls`` and ``rng.os_bytes`` are the default source's
+    calls and bytes, whatever draws them; ``rng.os_s`` its seconds."""
+    src = _CountingSource()
+    t = tprof.StageTimer()
+    with trng.scoped(src), tprof.tracing(t):
+        with tprof.stages(t)("draws"):
+            for m in (3, 80, 2**255 + 95, tbig.byte_len(1) + 200):
+                tbig.rnd(m)
+            trng.random_bytes(33)
+    assert src.calls > 4
+    assert t.counters[("draws", "rng.os_calls")] == src.calls
+    assert t.counters[("draws", "rng.os_bytes")] == src.bytes
+    assert 0 < t.counters[("draws", "rng.os_s")] < 1
+
+
+def test_rnd_draws_less_calls_are_the_tapes_rejections():
+    """``rnd.draws - rnd.calls`` equals the rejections found by replaying
+    the same ``DeterministicSource`` tape by hand; a seeded source is not
+    the OS's, so no ``rng.os_*`` counter moves."""
+    moduli = [2, 3, 5, 80, 129, 255, 256, 257, 2**31 - 1, 2**255 + 95] * 4
+    t = tprof.StageTimer()
+    with trng.scoped(trng.DeterministicSource(31337)), tprof.tracing(t):
+        got = [tbig.rnd(m) for m in moduli]
+    tape, rejected, want = trng.DeterministicSource(31337), 0, []
+    for m in moduli:
+        k = tbig.byte_len(m)
+        while (v := int.from_bytes(tape.random_bytes(k), "big")) >= m:
+            rejected += 1
+        want.append(v)
+    assert got == want and rejected > 0
+    assert t.counters[(None, "rnd.calls")] == len(moduli)
+    assert t.counters[(None, "rnd.draws")] - t.counters[(None, "rnd.calls")] == rejected
+    assert not any(name.startswith("rng.os") for _, name in t.counters)
+
+
+def test_no_tracer_moves_no_counter():
+    """With no tracer installed the counting sites add nothing and no
+    collector callback is added."""
+    before = list(gc.callbacks)
+    tbig.rnd(3)
+    trng.RandomSource().random_bytes(8)
+    tprof.count("test.n")
+    read_json(SignatureProofList, (VEC / "golden_proof.json").read_text())
+    assert all(not any(t.values) for t in tprof._tallies)
+    assert gc.callbacks == before and tprof.TRACER is None
+
+
+def test_read_json_under_a_tracer():
+    """The traced parse gives the same proof as the untraced one, and
+    counts the text's length and the seconds of ``json.loads``."""
+    text = (VEC / "golden_proof.json").read_text()
+    plain = read_json(SignatureProofList, text)
+    t = tprof.StageTimer()
+    with tprof.tracing(t), tprof.stages(t)("serde"):
+        traced = read_json(SignatureProofList, text)
+    assert write_json(SignatureProofList, traced) == write_json(SignatureProofList, plain) == text
+    assert t.counters[("serde", "serde.bytes")] == len(text)
+    assert 0 < t.counters[("serde", "serde.json_s")] < t.stages["serde"]
+
+
+def test_spans_share_the_profilers_clock(tmp_path):
+    """Under a CPU ``torch.profiler`` session each span is a
+    ``user_annotation`` range of its name, nested in its parent's range,
+    its duration within 10% or 0.5 ms of the span's."""
+    t = tprof.StageTimer("cpu")
+    stage = tprof.stages(t)
+    with tprof.trace(str(tmp_path)) as tr, tprof.tracing(t):
+        with stage("clock.outer"):
+            _busy(4)
+            with stage("clock.inner"):
+                _point_add()
+                _busy(6)
+            with stage("clock.inner"):
+                _busy(2)
+    with stage("clock.untraced"):
+        pass
+    with open(tr.path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    by_id = {s.id: s for s in t.spans}
+    traced = [s for s in t.spans if s.name != "clock.untraced"]
+    mine = sorted((r for r in ranges if r[2].startswith("clock.")), key=lambda r: r[0])
+    assert [r[2] for r in mine] == [s.name for s in sorted(traced, key=lambda s: s.start_ns)]
+    for s, (a, b, _) in zip(sorted(traced, key=lambda s: s.start_ns), mine):
+        assert abs((b - a) * 1e-6 - s.seconds) <= max(0.1 * s.seconds, 5e-4)
+        holders = [r for r in mine if r[0] < a and b < r[1]]
+        parent = min(holders, key=lambda r: r[1] - r[0])[2] if holders else None
+        assert parent == (by_id[s.parent].name if s.parent else None)

@@ -8,6 +8,7 @@ r_i) from their own ``rng``; every test enters both.
 """
 
 import dataclasses
+import gc
 import hashlib
 
 import jax.numpy as jnp
@@ -43,6 +44,7 @@ from zkecdsa_tpu_torch.protocol import batch_verify as tbv
 from zkecdsa_tpu_torch.protocol.batch import DeviceParams
 from zkecdsa_tpu_torch.serde import read_json, write_json
 from zkecdsa_tpu_torch.utils import config as tconfig
+from zkecdsa_tpu_torch.utils import profiling as tprofiling
 from zkecdsa_tpu_torch.utils import rng as trng
 from zkecdsa_tpu_torch.utils.profiling import StageTimer
 from zkecdsa_tpu_torch.zkp_attest_list import SignatureProofList
@@ -202,6 +204,45 @@ def test_mixed_batch_combined_and_attribution(mixed, monkeypatch):
             # P-256, and for Tom-256 again when the combined check fails
             assert timer.counts.get("msm.combine_host") == 1, timer.counts
             assert timer.counts.get("msm.pack_host") == 1 + k, timer.counts
+        # that rerun is the attribution pass, one span with its rows counted
+        assert timer.counts.get("msm.attribution", 0) == (1 if k == 1 else 0), timer.counts
+        if k == 1:
+            assert timer.counters[("msm.attribution", "msm.attribution_rows")] == 2
+            assert timer.counters[("msm.attribution", "msm.rows_failed")] == 1
+
+
+def test_mixed_batch_spans_and_counters(mixed, monkeypatch):
+    """The tampered batch under ``profiling.tracing`` with no ``timer=``:
+    the verifier's stages nest as they should under one call id, the
+    per-row checks of the attribution pass inside ``msm.attribution``;
+    the round sample's draws are counted in ``verify.host_prep`` (78
+    ``rnd`` calls a proof, the shuffle of 80 rounds); a seeded source
+    moves no OS counter.  Then, with no tracer, a verify adds no
+    collector callback and moves no tally."""
+    params, msgs, ring, jproofs = mixed
+    monkeypatch.setattr(tbv, "_COMB_W", 64)
+    port = tbv.BatchVerifier(carry.params_from_jax(jwrite_json(JParams, params)), device="cpu")
+    tampered = [_to_port(p) for p in jproofs]
+    tampered[1].membershipProof.f[0] = tampered[1].membershipProof.f[1]
+    timer = StageTimer("cpu")
+    with tprofiling.tracing(timer):
+        assert port.verify(msgs, ring, tampered) == [True, False]
+    assert tprofiling.TRACER is None
+    by_id = {sp.id: sp for sp in timer.spans}
+    assert len({sp.call for sp in timer.spans}) == 1 and None not in {sp.call for sp in timer.spans}
+    (attr,) = [sp for sp in timer.spans if sp.name == "msm.attribution"]
+    assert attr.parent is None
+    inside = [sp.name for sp in timer.spans if sp.parent == attr.id]
+    assert inside == ["msm.pack_host", "msm.upload", "msm.digits", "msm.device"]
+    assert all(sp.parent is None for sp in timer.spans if sp.name.startswith("verify."))
+    assert all(by_id[sp.parent].name == "msm.attribution" for sp in timer.spans if sp.parent is not None)
+    assert timer.counters[("verify.host_prep", "rnd.calls")] == 2 * 78
+    assert not any(name.startswith("rng.os") for _, name in timer.counters)
+
+    before = list(gc.callbacks)
+    assert port.verify(msgs, ring, tampered) == [True, False]
+    assert gc.callbacks == before and tprofiling.TRACER is None
+    assert all(not any(t.values) for t in tprofiling._tallies)
 
 
 @pytest.fixture

@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import hashlib
 
-from ..utils import rng
+from ..utils import profiling, rng
+
+_RND = profiling.Tally("rnd.calls", "rnd.draws")
 
 __all__ = [
     "verify_pos_range",
@@ -159,12 +161,20 @@ def hash_nums(nums: list[int]) -> int:
 def rnd(n: int) -> int:
     """Uniform random in [0, n) by rejection sampling over byte_len(n)
     random bytes (big.ts:171-180). Draws through the rng seam so tests can
-    replay the tape deterministically."""
+    replay the tape deterministically.  While a tracer is installed
+    (``utils.profiling.tracing``) it counts ``rnd.calls`` and
+    ``rnd.draws``, the attempts, rejected ones included."""
     nbytes = byte_len(n)
-    while True:
+    draws = 1
+    ret = from_bytes(rng.random_bytes(nbytes))
+    while ret >= n:
+        draws += 1
         ret = from_bytes(rng.random_bytes(nbytes))
-        if ret < n:
-            return ret
+    if profiling.TRACER is not None:
+        v = _RND.values
+        v[0] += 1
+        v[1] += draws
+    return ret
 
 
 def rnd_range(lo: int, hi: int) -> int:

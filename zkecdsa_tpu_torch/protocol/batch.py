@@ -77,7 +77,7 @@ from ..ops.curve_ops import (
 )
 from ..ops.field import NLIMBS, P256_N, TOM_N, FieldT, bytes_le
 from ..parallel.mesh import gather, shard_batch, sharded_gk_dvalues
-from ..utils import rng
+from ..utils import profiling, rng
 from ..utils.profiling import stages
 from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
 from .fiat_shamir import challenge_rows, point_bytes
@@ -559,6 +559,14 @@ class BatchProver:
         tapes: Optional[Sequence[rng.RandomSource]] = None,
         timer=None,
     ) -> list[SignatureProofList]:
+        """One proof an instance.  ``timer`` (or, where it is None, the
+        timer ``utils.profiling.tracing`` installed) gets the stages and
+        is installed for the call."""
+        timer = profiling.current(timer)
+        with profiling.tracing(timer):
+            return self._prove_all(msg_hashes, sig_bytes, public_keys_raw, whichs, keys, tapes, timer)
+
+    def _prove_all(self, msg_hashes, sig_bytes, public_keys_raw, whichs, keys, tapes, timer):
         N_all = len(msg_hashes)
         mesh = self.mesh
         if tapes is None:
@@ -575,9 +583,9 @@ class BatchProver:
             out: list[SignatureProofList] = []
             for lo in range(0, N_all, step):
                 hi = min(lo + step, N_all)
-                out.extend(self.prove(
+                out.extend(self._prove_all(
                     msg_hashes[lo:hi], sig_bytes[lo:hi], public_keys_raw[lo:hi],
-                    whichs[lo:hi], keys, tapes[lo:hi], timer=timer,
+                    whichs[lo:hi], keys, tapes[lo:hi], timer,
                 ))
             return out
 

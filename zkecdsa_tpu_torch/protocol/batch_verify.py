@@ -63,7 +63,7 @@ from ..ops.msm_bucket import bucket_bytes, bucket_fold, bucket_sums, pick_window
 from ..parallel.mesh import from_first_rank, gather, shard_batch, sharded_gk_recombine
 from ..proofGK.gk import _pad, gk_statement_bind
 from ..runtime import native
-from ..utils import rng
+from ..utils import profiling, rng
 from ..utils.config import get_config
 from ..utils.profiling import stages
 from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
@@ -235,8 +235,10 @@ def _combined_msm_identity(
     device and identity-check the total.  If any row were non-identity the
     combined sum survives with probability 1 - 1/order (the argument of
     Relation.drain, multimult.ts:147-174).  Only when the combined check
-    fails do the per-row checks run, to say which rows failed.  Batches
-    too small to fill four sub-rows take the per-row path directly.
+    fails do the per-row checks run, to say which rows failed: that
+    attribution pass is the stage ``msm.attribution``, which counts
+    ``msm.attribution_rows`` and ``msm.rows_failed``.  Batches too small
+    to fill four sub-rows take the per-row path directly.
 
     With a ``mesh`` the sub-rows (a multiple of lcm(4, dp)) are split over
     ``dp``; each rank sums its share, and the partial points are gathered
@@ -277,8 +279,12 @@ def _combined_msm_identity(
         all_ok = bool(ops.is_identity(sum_reduce(ops, gather(mesh, local[None]), axis=0)))
     if all_ok:
         return np.ones(N, dtype=bool)
-    # attribution path: some row failed - per-row checks
-    return _batched_msm_identity(group, rows, device, t_static=t_static, timer=timer, mesh=mesh)
+    # attribution pass: some row failed - per-row checks
+    with stage("msm.attribution"):
+        ok = _batched_msm_identity(group, rows, device, t_static=t_static, timer=timer, mesh=mesh)
+        profiling.count("msm.attribution_rows", N)
+        profiling.count("msm.rows_failed", int(N - ok.sum()))
+    return ok
 
 
 class BatchVerifier:
@@ -313,6 +319,14 @@ class BatchVerifier:
         proofs: Sequence[SignatureProofList],
         timer=None,
     ) -> list[bool]:
+        """The verdict of each proof.  ``timer`` (or, where it is None,
+        the timer ``utils.profiling.tracing`` installed) gets the stages
+        and is installed for the call."""
+        timer = profiling.current(timer)
+        with profiling.tracing(timer):
+            return self._verify_all(msg_hashes, keys, proofs, timer)
+
+    def _verify_all(self, msg_hashes, keys, proofs, timer) -> list[bool]:
         N_all = len(proofs)
         mesh = self.mesh
         if N_all > self.MAX_CHUNK:
@@ -323,7 +337,7 @@ class BatchVerifier:
             out: list[bool] = []
             for lo in range(0, N_all, step):
                 hi = min(lo + step, N_all)
-                out.extend(self.verify(msg_hashes[lo:hi], keys, proofs[lo:hi], timer=timer))
+                out.extend(self._verify_all(msg_hashes[lo:hi], keys, proofs[lo:hi], timer))
             return out
         if mesh is None:
             return self._verify(msg_hashes, keys, proofs, timer)

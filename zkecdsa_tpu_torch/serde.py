@@ -20,6 +20,7 @@ The bit-exactness contract (SURVEY section 3.5):
 from __future__ import annotations
 
 import json
+import time
 from typing import Any, Callable, Type, TypeVar
 
 from .bignum.big import hex_to_int, int_to_hex, verify_pos_range
@@ -33,6 +34,7 @@ from .curves.weier import WeierstrassGroup, WeierstrassPoint
 from .exp.exp import ExpProof
 from .exp.pointAdd import PointAddProof
 from .proofGK.gk import GKProof
+from .utils import profiling
 from .zkp_attest_list import SignatureProofList, SystemParametersList
 
 __all__ = ["read_json", "write_json", "to_json_dict", "from_json_dict"]
@@ -325,5 +327,15 @@ def write_json(cls: Type[T], obj: T) -> str:
 
 
 def read_json(cls: Type[T], text: str) -> T:
-    """Parse + validate; raises on any invalid content (serde.ts:21-32)."""
-    return from_json_dict(cls, json.loads(text))
+    """Parse + validate; raises on any invalid content (serde.ts:21-32).
+    While a tracer is installed (``utils.profiling.tracing``) it counts
+    ``serde.json_s``, the seconds in ``json.loads``, and ``serde.bytes``,
+    the text's length (the wire is ASCII): the decode and the checks of
+    every point are the rest of the call."""
+    if profiling.TRACER is None:
+        return from_json_dict(cls, json.loads(text))
+    t0 = time.perf_counter()
+    obj = json.loads(text)
+    profiling.count("serde.json_s", time.perf_counter() - t0)
+    profiling.count("serde.bytes", len(text))
+    return from_json_dict(cls, obj)

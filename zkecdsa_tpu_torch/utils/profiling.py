@@ -9,29 +9,40 @@
   launches out of it, and :func:`kernel_device_ms` traces loops of calls
   on the card and gives their kernels' own time a call, apart from the
   host's time around them;
-* :class:`StageTimer` - per-stage wall-clock accounting for the batched
-  pipeline.  Work on a CUDA device is asynchronous, so with a CUDA
-  ``device`` each stage boundary synchronises it: a stage's time is then
-  the time its own work took on the card, not the time to enqueue it;
+* :class:`StageTimer` - nested spans (ids, parents, call ids, self time)
+  and counters for the batched pipeline.  Work on a CUDA device is
+  asynchronous, so with a CUDA ``device`` each span boundary synchronises
+  it: a stage's time is then the time its own work took on the card, not
+  the time to enqueue it;
+* :func:`tracing` - installs a timer for a block (the entry points
+  install the ``timer=`` they are given), so that code handed no timer
+  reports :func:`count` and :class:`Tally` counters and the cyclic
+  collector's passes to it.  With none installed a counting site costs
+  one read of ``TRACER`` and one ``None`` test;
 * :func:`kernel_ns_per_op` - median ns per logical op of a call on the
   card, timed with CUDA events.
+
+The host layer (``bignum``, ``serde``, ``utils.rng``) imports this module,
+so it imports ``torch`` only inside the functions that use it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import gc
+import itertools
 import json
 import os
 import statistics
 import time
+import weakref
 from typing import Callable
 
-import torch
-
 __all__ = [
-    "Trace", "trace", "device_time", "kernel_launch_us", "case_launch_us", "kernel_device_ms", "StageTimer", "stages",
-    "kernel_ns_per_op",
+    "Trace", "trace", "device_time", "kernel_launch_us", "case_launch_us", "kernel_device_ms", "Span", "StageTimer",
+    "Tally", "tracing", "count", "current", "record_of", "stages", "kernel_ns_per_op",
 ]
 
 # Chrome-trace categories of work on the device
@@ -60,6 +71,7 @@ def trace(logdir: str | None = None):
         logdir = get_config().profile_dir
     if logdir is None:
         raise ValueError("no trace directory: pass logdir or set ZKECDSA_PROFILE_DIR")
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -147,6 +159,8 @@ def kernel_device_ms(cases, reps: int, logdir: str) -> list[float]:
     an NVIDIA H100 under PyTorch's CUDA build: all of one trace's among a
     dozen, one of 240 in another), so a case needs half its launches, not
     all.  Raises without a card, or if a case has fewer."""
+    import torch
+
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_device_ms times CUDA work: CUDA is not available")
     for fn, _, _ in cases:
@@ -168,49 +182,264 @@ def kernel_device_ms(cases, reps: int, logdir: str) -> list[float]:
     return out
 
 
-class StageTimer:
-    """Accumulates wall-clock per named pipeline stage."""
+@dataclasses.dataclass(frozen=True, slots=True)
+class Span:
+    """A closed span of a :class:`StageTimer`: its name, its start and end
+    (``time.perf_counter_ns``), its own id, its parent's id (None at the
+    top) and the id of the :func:`tracing` block, one an entry-point call,
+    it was opened in (None outside any)."""
 
-    def __init__(self, device: torch.device | str | None = None) -> None:
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    call: int | None
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+class StageTimer:
+    """Wall-clock accounting for the batched pipeline, as nested spans.
+
+    * ``stages``: seconds a stage name, its child spans included, and
+      ``counts``: entries a stage name;
+    * ``self_s``: seconds a stage name less its child spans' seconds;
+    * ``spans``: every closed :class:`Span`, in the order they closed;
+    * ``counters``: what :meth:`count` added, keyed by (the innermost
+      open span's name, or None, and the counter's name).
+
+    With a CUDA ``device`` each span boundary synchronises it, so that a
+    stage's time is its own work's on the card and not the time to
+    enqueue it.  While a ``torch.profiler`` session is on, each span is
+    also a ``record_function`` range of its name (never with
+    ``record=False``), so that the device trace's timeline holds it."""
+
+    def __init__(self, device=None, record: bool = True) -> None:
         self.stages: dict[str, float] = {}
         self.counts: dict[str, int] = {}
-        dev = torch.device(device) if device is not None else None
-        self._sync = dev is not None and dev.type == "cuda"
-        self._device = dev
+        self.self_s: dict[str, float] = {}
+        self.spans: list[Span] = []
+        self.counters: dict[tuple[str | None, str], float] = {}
+        self._open: list[list] = []  # [name, id, start ns, children's ns] of each open span
+        self._ids = itertools.count(1)
+        self._record = record
+        self._device = None
+        if device is not None:
+            import torch
+
+            self._device = torch.device(device)
+        self._sync = self._device is not None and self._device.type == "cuda"
 
     def _barrier(self) -> None:
         if self._sync:
+            import torch
+
             torch.cuda.synchronize(self._device)
 
     @contextlib.contextmanager
     def stage(self, name: str):
         self._barrier()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._barrier()
-            dt = time.perf_counter() - t0
-            self.stages[name] = self.stages.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+        tr = TRACER
+        call = tr.call if tr is not None and tr.keeper is self else None
+        parent = self._open[-1][1] if self._open else None
+        frame = [name, next(self._ids), 0, 0]
+        with _range(name) if self._record else _NULL:
+            self._open.append(frame)
+            frame[2] = time.perf_counter_ns()
+            try:
+                yield
+            finally:
+                self._barrier()
+                end = time.perf_counter_ns()
+                self._open.pop()
+                ns = end - frame[2]
+                if self._open:
+                    self._open[-1][3] += ns
+                self.spans.append(Span(name, frame[2], end, frame[1], parent, call))
+                self.stages[name] = self.stages.get(name, 0.0) + ns * 1e-9
+                self.self_s[name] = self.self_s.get(name, 0.0) + (ns - frame[3]) * 1e-9
+                self.counts[name] = self.counts.get(name, 0) + 1
+
+    def count(self, name: str, n: float = 1) -> None:
+        """Add ``n`` to counter ``name`` of the innermost open span."""
+        key = (self._open[-1][0] if self._open else None, name)
+        self.counters[key] = self.counters.get(key, 0) + n
 
     def report(self) -> str:
-        total = sum(self.stages.values()) or 1.0
+        """A line a stage, by seconds: seconds, share of all self time,
+        entries; then a line a counter, by span."""
+        total = sum(self.self_s.values()) or 1.0
         lines = [
-            f"{name:<28s} {secs:8.3f}s  {100 * secs / total:5.1f}%  x{self.counts[name]}"
-            for name, secs in sorted(
-                self.stages.items(), key=lambda kv: -kv[1]
-            )
+            f"{name:<28s} {secs:8.3f}s  {100 * self.self_s[name] / total:5.1f}% self  x{self.counts[name]}"
+            for name, secs in sorted(self.stages.items(), key=lambda kv: -kv[1])
+        ]
+        lines += [
+            f"{span or '-':<28s} {name} {n:.6g}"
+            for (span, name), n in sorted(self.counters.items(), key=lambda kv: (kv[0][0] or "", kv[0][1]))
         ]
         return "\n".join(lines)
 
-    def as_json(self) -> str:
-        return json.dumps(self.stages)
+
+# ---- the installed tracer: counters from code that is handed no timer ----
 
 
-def stages(timer: StageTimer | None):
-    """``timer.stage``, or a no-op stage when there is no timer."""
-    return timer.stage if timer is not None else (lambda _name: contextlib.nullcontext())
+@dataclasses.dataclass(slots=True)
+class _Tracer:
+    timer: object  # what tracing() installed: anything with stage(name)
+    keeper: object  # what counts go to: the timer, or the StageTimer kept for it
+    call: int
+
+
+TRACER: _Tracer | None = None  # the innermost tracing() block's, or None
+_calls = itertools.count(1)
+_kept: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_tallies: list["Tally"] = []
+_GC_NAMES = ("gc.collections.0", "gc.collections.1", "gc.collections.2")
+_gc_t0: float | None = None
+_NULL = contextlib.nullcontext()
+
+
+class Tally:
+    """Plain numbers that a hot site adds to while a tracer is installed
+    (``TRACER is not None``): ``values``, one slot a name, so that a
+    draw costs no dict update.  At each span boundary of the installed
+    timer, and when a tracer is removed, every nonzero value is counted
+    to the open span and zeroed."""
+
+    __slots__ = ("names", "values")
+
+    def __init__(self, *names: str) -> None:
+        self.names = names
+        self.values = [0] * len(names)
+        _tallies.append(self)
+
+
+def _charge(tr: _Tracer) -> None:
+    for t in _tallies:
+        v = t.values
+        for i, name in enumerate(t.names):
+            if v[i]:
+                tr.keeper.count(name, v[i])
+                v[i] = 0
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    global _gc_t0
+    if phase == "start":
+        _gc_t0 = time.perf_counter()
+        return
+    tr = TRACER
+    if tr is not None and _gc_t0 is not None:
+        tr.keeper.count(_GC_NAMES[info["generation"]], 1)
+        tr.keeper.count("gc.s", time.perf_counter() - _gc_t0)
+    _gc_t0 = None
+
+
+@contextlib.contextmanager
+def tracing(timer):
+    """Install ``timer``, any object with ``stage(name)``, for the block,
+    one entry-point call (a call id shared by the spans opened in it);
+    ``None`` installs nothing.
+
+    While it is installed, :func:`count` and the hot sites' tallies
+    (:class:`Tally`) report to ``timer.count`` where the timer has one;
+    for a timer without, to a :class:`StageTimer` that the port keeps
+    beside it (:func:`record_of`), which also records the port's own
+    spans.  The outermost block adds one ``gc.callbacks`` entry, which
+    counts the cyclic collector's passes by generation
+    (``gc.collections.<n>``) and its seconds (``gc.s``) to the open
+    span, and removes it at its end."""
+    global TRACER
+    if timer is None:
+        yield None
+        return
+    keeper = timer if callable(getattr(timer, "count", None)) else record_of(timer)
+    if keeper is None:
+        keeper = StageTimer(record=False)
+        with contextlib.suppress(TypeError):  # a timer that cannot be weakly referenced keeps none
+            _kept[timer] = keeper
+    outer = TRACER
+    if outer is not None:
+        _charge(outer)
+    tr = TRACER = _Tracer(timer, keeper, next(_calls))
+    if outer is None:
+        gc.callbacks.append(_on_gc)
+    try:
+        yield timer
+    finally:
+        _charge(tr)
+        TRACER = outer
+        if outer is None:
+            gc.callbacks.remove(_on_gc)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to counter ``name`` of the installed tracer's open span;
+    nothing when no tracer is installed."""
+    tr = TRACER
+    if tr is not None:
+        tr.keeper.count(name, n)
+
+
+def current(timer=None):
+    """``timer``, or where it is None the timer :func:`tracing` installed
+    (None when there is none): what an entry point runs its stages on."""
+    if timer is None and TRACER is not None:
+        return TRACER.timer
+    return timer
+
+
+def record_of(timer) -> StageTimer | None:
+    """The :class:`StageTimer` in which :func:`tracing` kept the port's
+    spans and counters for ``timer``, a timer without ``count``, or
+    None."""
+    try:
+        return _kept.get(timer)
+    except TypeError:
+        return None
+
+
+def stages(timer):
+    """The stage opener for ``timer``: ``timer.stage``, and while
+    ``timer`` is the installed one, the tallies charged at each boundary
+    and the kept record's span beside it; a no-op stage when there is no
+    timer."""
+    if timer is None:
+        return _no_stage
+    return functools.partial(_stage, timer)
+
+
+def _no_stage(_name: str):
+    return _NULL
+
+
+@contextlib.contextmanager
+def _stage(timer, name: str):
+    tr = TRACER
+    if tr is None or tr.timer is not timer:
+        with timer.stage(name):
+            yield
+        return
+    _charge(tr)
+    with timer.stage(name), (tr.keeper.stage(name) if tr.keeper is not timer else _NULL):
+        try:
+            yield
+        finally:
+            _charge(tr)
+
+
+def _range(name: str):
+    """A ``record_function`` range of ``name`` while a ``torch.profiler``
+    session is on, else nothing."""
+    import torch
+
+    on = getattr(torch.autograd, "_profiler_enabled", None)
+    if on is not None and not on():
+        return _NULL
+    return torch.profiler.record_function(name)
 
 
 def kernel_ns_per_op(fn: Callable, args: tuple, n_ops: int, iters: int = 20, warmup: int = 2) -> float:
@@ -218,6 +447,8 @@ def kernel_ns_per_op(fn: Callable, args: tuple, n_ops: int, iters: int = 20, war
     reference's hrtime.ts analog): after ``warmup`` calls, each of
     ``iters`` calls is timed between two CUDA events and divided by
     ``n_ops``.  Raises without a card."""
+    import torch
+
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ns_per_op times CUDA work: CUDA is not available")
     for _ in range(warmup):

@@ -16,17 +16,33 @@ so the tape is reproducible.
 from __future__ import annotations
 
 import hashlib
+import time
 from contextlib import contextmanager
 from typing import Iterator
 
+from . import profiling
+
+# calls into the OS's CSPRNG, their bytes and seconds, while a tracer is installed
+_OS = profiling.Tally("rng.os_calls", "rng.os_bytes", "rng.os_s")
+
 
 class RandomSource:
-    """OS-CSPRNG random source (default)."""
+    """OS-CSPRNG random source (default).  While a tracer is installed
+    (``utils.profiling.tracing``) each call is counted: ``rng.os_calls``,
+    ``rng.os_bytes`` and ``rng.os_s``, the seconds inside the OS source."""
 
     def random_bytes(self, n: int) -> bytes:
         from ..runtime import native
 
-        return native.fill_random(n)
+        if profiling.TRACER is None:
+            return native.fill_random(n)
+        t0 = time.perf_counter()
+        out = native.fill_random(n)
+        v = _OS.values
+        v[2] += time.perf_counter() - t0
+        v[0] += 1
+        v[1] += n
+        return out
 
 
 class DeterministicSource(RandomSource):
