@@ -7,7 +7,7 @@ of it (``case_launch_us``: case by case), ``kernel_device_ms`` and
 ``kernel_ns_per_op`` time a call on the card
 (from a trace, and with CUDA events); ``StageTimer``'s spans and counters,
 ``tracing`` and the counting sites of the OS source, ``bignum.rnd`` and
-``serde.read_json``."""
+``serde.read_json`` (on its native and its Python path)."""
 
 import contextlib
 import dataclasses
@@ -22,6 +22,7 @@ import torch
 from zkecdsa_tpu_torch.bignum import big as tbig
 from zkecdsa_tpu_torch.curves.instances import p256
 from zkecdsa_tpu_torch.ops import curve_ops as tcurve
+from zkecdsa_tpu_torch.runtime import native
 from zkecdsa_tpu_torch.serde import read_json, write_json
 from zkecdsa_tpu_torch.utils import config as tconfig
 from zkecdsa_tpu_torch.utils import profiling as tprof
@@ -357,15 +358,30 @@ def test_no_tracer_moves_no_counter():
 
 def test_read_json_under_a_tracer():
     """The traced parse gives the same proof as the untraced one, and
-    counts the text's length and the seconds of ``json.loads``."""
+    counts the text's length and the seconds of the path that read it:
+    the native decoder's call (``serde.native``, ``serde.native_s``) for
+    the canonical golden wire, ``json.loads`` (``serde.fallback``,
+    ``serde.json_s``) for the same proof pretty-printed."""
     text = (VEC / "golden_proof.json").read_text()
+    pretty = json.dumps(json.loads(text), indent=1)
     plain = read_json(SignatureProofList, text)
     t = tprof.StageTimer()
-    with tprof.tracing(t), tprof.stages(t)("serde"):
-        traced = read_json(SignatureProofList, text)
-    assert write_json(SignatureProofList, traced) == write_json(SignatureProofList, plain) == text
+    with tprof.tracing(t):
+        with tprof.stages(t)("serde"):
+            traced = read_json(SignatureProofList, text)
+        with tprof.stages(t)("serde.pretty"):
+            traced_pretty = read_json(SignatureProofList, pretty)
+    for proof in (traced, traced_pretty):
+        assert write_json(SignatureProofList, proof) == write_json(SignatureProofList, plain) == text
     assert t.counters[("serde", "serde.bytes")] == len(text)
-    assert 0 < t.counters[("serde", "serde.json_s")] < t.stages["serde"]
+    assert t.counters[("serde.pretty", "serde.bytes")] == len(pretty)
+    if native.available():
+        assert t.counters[("serde", "serde.native")] == 1
+        assert 0 < t.counters[("serde", "serde.native_s")] < t.stages["serde"]
+    else:
+        assert t.counters[("serde", "serde.fallback")] == 1
+    assert t.counters[("serde.pretty", "serde.fallback")] == 1
+    assert 0 < t.counters[("serde.pretty", "serde.json_s")] < t.stages["serde.pretty"]
 
 
 def test_spans_share_the_profilers_clock(tmp_path):

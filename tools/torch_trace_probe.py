@@ -10,8 +10,12 @@ batches - the wire parse, then ``BatchVerifier.verify`` - each under
 ``profiling.tracing`` of its own ``StageTimer`` on the device, inside the
 spans ``batch`` and ``serde``, with the port's default OS source wrapped to
 keep its calls and bytes.  Prints, a batch: its seconds, the stages' self
-seconds, every counter by span, and whether ``rng.os_calls`` and
-``rng.os_bytes`` equal the wrapper's tallies; then one untraced batch,
+seconds, every counter by span, whether ``rng.os_calls`` and
+``rng.os_bytes`` equal the wrapper's tallies, and the wire's split: the
+proofs the native decoder read (``serde.native``) against the Python
+path's (``serde.fallback``), and the ``serde`` span's self seconds as the
+native call (``serde.native_s``), ``json.loads`` (``serde.json_s``), the
+collector (``gc.s``) and the rest, the object build; then one untraced batch,
 what a counting site costs with no tracer installed (the executions a
 batch of each site times its measured cost) and what the counting adds to
 a one-byte OS draw with one installed (times the batch's OS calls).
@@ -52,6 +56,19 @@ def by_name(counters: dict) -> dict:
     for (_, name), n in counters.items():
         out[name] = out.get(name, 0) + n
     return out
+
+
+def wire_split(t) -> dict:
+    """The ``serde`` span of a traced batch: proofs by path, and its self
+    seconds as the native call, ``json.loads``, the collector and the rest
+    (the objects built from the native output, or the Python decode)."""
+    c = {name: v for (span, name), v in t.counters.items() if span == "serde"}
+    native, fallback = c.get("serde.native", 0), c.get("serde.fallback", 0)
+    span = t.self_s.get("serde", 0.0)
+    native_s, json_s, gc_s = c.get("serde.native_s", 0.0), c.get("serde.json_s", 0.0), c.get("gc.s", 0.0)
+    return {"native": native, "fallback": fallback, "native_share": native / max(native + fallback, 1),
+            "span_s": span, "native_s": native_s, "json_s": json_s, "gc_s": gc_s,
+            "build_s": span - native_s - json_s - gc_s}
 
 
 def site_cost_ns(reps: int = 2_000_000) -> dict:
@@ -180,10 +197,15 @@ def main(argv=None) -> int:
             "counters": total, "counters_by_span": [[s, n, v] for (s, n), v in sorted(t.counters.items(),
                                                                                       key=lambda kv: (kv[0][0] or "", kv[0][1]))],
             "wrapper_calls": src.calls, "wrapper_bytes": src.bytes, "os_counts_equal_wrapper": same,
+            "wire": wire_split(t),
         }
         out["batches"].append(rec)
+        w = rec["wire"]
         print(f"# batch {b}: {wall:.4f} s, {ok.count(False)} rejected; os counters equal the wrapper's: {same} "
               f"({src.calls} calls, {src.bytes} bytes)", flush=True)
+        print(f"# wire: {w['native']} of {w['native'] + w['fallback']} proofs native ({100 * w['native_share']:.1f}%); "
+              f"serde {w['span_s']:.4f} s = native call {w['native_s']:.4f} + json.loads {w['json_s']:.4f} "
+              f"+ collector {w['gc_s']:.4f} + object build {w['build_s']:.4f}", flush=True)
         print(t.report(), flush=True)
     t_b = time.perf_counter()
     batch(args.batches, None)

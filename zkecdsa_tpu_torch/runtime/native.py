@@ -1,11 +1,12 @@
-"""Hashing and OS randomness for the host layer: the port's counterpart of
-``zkecdsa_tpu/runtime/native.py``, with its signatures.
+"""Hashing, OS randomness and the wire decoder for the host layer: the
+port's counterpart of ``zkecdsa_tpu/runtime/native.py``, with its
+signatures, and :func:`read_proof`.
 
 ``native.cpp`` beside this file (SHA-256 from FIPS 180-4, on the x86 SHA
-extensions where the CPU has them; many digests on a thread pool) is
-built with ``g++`` at first use into
-``build/zkecdsa_tpu_torch/libzkruntime.so``, beside the kernels' library,
-and loaded with ``ctypes``.  The build runs again only when the source is
+extensions where the CPU has them; many digests on a thread pool; the
+decoder of a proof's canonical wire JSON) is built with ``g++`` at first
+use into ``build/zkecdsa_tpu_torch/libzkruntime.so``, beside the kernels'
+library, and loaded with ``ctypes``.  The build runs again only when the source is
 newer than the library.  It holds the build directory's ``runtime.lock``
 (``_build.build_lock``), so processes started together build once, and
 ``g++`` writes a temporary file in the build directory that ``os.replace``
@@ -19,6 +20,12 @@ behaviour: the digests are the same bytes either way, so the
 reference package's.  :func:`available` says whether the library runs and
 :func:`error` why it does not.  :func:`fill_random` is ``secrets`` on
 every machine (see native.cpp).
+
+:func:`read_proof` (``zk_read_proof``) reads a ``SignatureProofList``'s
+wire text in the form ``serde.write_json`` emits, checking every point on
+its curve, into flat arrays; it returns None for any other text, and
+wherever the library is unavailable, and ``serde.read_json`` then takes
+its Python path.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ __all__ = [
     "build",
     "error",
     "fill_random",
+    "read_proof",
     "sha256",
     "sha256_batch",
     "sha256_rows",
@@ -104,6 +112,11 @@ def _load() -> ctypes.CDLL | None:
                 ctypes.c_char_p, ctypes.c_int,
             ]
             lib.zk_sha256_batch.restype = None
+            lib.zk_read_proof.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+            ]
+            lib.zk_read_proof.restype = ctypes.c_int
             out = ctypes.create_string_buffer(32)
             lib.zk_sha256(_PROBE, len(_PROBE), out)
             if out.raw != hashlib.sha256(_PROBE).digest():
@@ -189,3 +202,39 @@ def sha256_rows(arr, threads: int | None = None) -> np.ndarray:
 def fill_random(n: int) -> bytes:
     """``n`` bytes from the OS CSPRNG (``secrets``, getrandom on Linux)."""
     return secrets.token_bytes(n)
+
+
+# The shortest text an integer can take in the wire: half a point,
+# ``{"group":{"name":"p256"},"x":"0x0","y":"0x0"}``, is 22.5 characters.
+_CHARS_PER_INT = 22
+# Bytes an integer in zk_read_proof's output (kIntBytes in native.cpp).
+INT_BYTES = 33
+
+
+def read_proof(text: str) -> tuple[bytes, bytes, list[int]] | None:
+    """A ``SignatureProofList``'s wire text in one native pass, or None
+    where the library is unavailable or the text is not in the canonical
+    form (see native.cpp).  Returns ``(kinds, ints, shape)``: a byte a point
+    or scalar in document order (0 a P-256 point, 1 a Tom-256 point, 2 a
+    P-256 scalar, 3 a Tom-256 scalar), ``INT_BYTES`` big-endian bytes an
+    integer (a point's x and y, a scalar's k), and the rounds' count, each
+    round's mask of its optional fields (bit i the i-th of ``alpha, beta1,
+    beta2, beta3, z, z2, proof, r1, r2``), then the lengths of ``cl, ca,
+    cb, cd, f, za, zb``.  Every point is on its curve, each coordinate
+    below its field's prime."""
+    if not isinstance(text, str) or not text.isascii():
+        return None
+    lib = _load()
+    if lib is None:
+        return None
+    data = text.encode("ascii")
+    cap = len(data) // _CHARS_PER_INT + 2
+    kinds = np.empty(cap, np.uint8)
+    ints = np.empty(cap * INT_BYTES, np.uint8)
+    shape = np.empty(len(data) // 64 + 16, np.int32)  # a round's text is longer than 64 characters
+    counts = np.empty(3, np.uint64)
+    if lib.zk_read_proof(data, len(data), kinds.ctypes.data, ints.ctypes.data, cap,
+                         shape.ctypes.data, len(shape), counts.ctypes.data):
+        return None
+    n_kinds, n_ints, n_shape = (int(c) for c in counts)
+    return kinds[:n_kinds].tobytes(), ints[: n_ints * INT_BYTES].tobytes(), shape[:n_shape].tolist()

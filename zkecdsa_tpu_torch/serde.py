@@ -15,12 +15,21 @@ The bit-exactness contract (SURVEY section 3.5):
   (no whitespace), like ``JSON.stringify``;
 * ``ExpProof`` optional response fields are omitted when absent;
 * any missing/invalid required field raises.
+
+``read_json(SignatureProofList, text)`` first hands the text to the native
+decoder (``runtime/native.py::read_proof``), which reads only the canonical
+form above, checking every point on its curve, and builds the proof from
+its flat output with no dicts and no Python checks.  Where it declines
+(any other text, or no library), the Python path below reads the text, so
+every input gives the same object or raises the same error either way.
 """
 
 from __future__ import annotations
 
 import json
 import time
+from itertools import islice, starmap
+from struct import iter_unpack
 from typing import Any, Callable, Type, TypeVar
 
 from .bignum.big import hex_to_int, int_to_hex, verify_pos_range
@@ -29,11 +38,12 @@ from .commit.mult import MultProof
 from .commit.pedersen import PedersenParams
 from .curves.edwards import TEdwards, TEdwardsPoint
 from .curves.group import Group, Point, Scalar
-from .curves.instances import group_by_name
+from .curves.instances import group_by_name, p256, tomEdwards256
 from .curves.weier import WeierstrassGroup, WeierstrassPoint
 from .exp.exp import ExpProof
 from .exp.pointAdd import PointAddProof
 from .proofGK.gk import GKProof
+from .runtime import native
 from .utils import profiling
 from .zkp_attest_list import SignatureProofList, SystemParametersList
 
@@ -326,13 +336,73 @@ def write_json(cls: Type[T], obj: T) -> str:
     return json.dumps(to_json_dict(obj), separators=(",", ":"))
 
 
+_INT_FORMAT = f"{native.INT_BYTES}s"
+
+
+def _build_proof(kinds: bytes, ints: bytes, shape: list[int]) -> SignatureProofList:
+    """The proof from :func:`native.read_proof`'s flat output: every point
+    and scalar in document order, then the containers around them."""
+    nx = starmap(int.from_bytes, iter_unpack(_INT_FORMAT, ints)).__next__
+    W, E, sp, st = WeierstrassPoint, TEdwardsPoint, p256.new_scalar, tomEdwards256.new_scalar
+    vals = iter([
+        st(nx()) if k == 3 else E(tomEdwards256, nx(), nx(), None, 1) if k == 1
+        else sp(nx()) if k == 2 else W(p256, nx(), nx(), 1)
+        for k in kinds
+    ])
+    v = vals.__next__
+
+    def mult() -> MultProof:
+        return MultProof(*islice(vals, 13))
+
+    def equality() -> EqualityProof:
+        return EqualityProof(*islice(vals, 5))
+
+    R, comS1, keyXcom, keyYcom = v(), v(), v(), v()
+    n = shape[0]
+    rounds = []
+    for m in shape[1 : 1 + n]:
+        rounds.append(ExpProof(
+            v(), v(), v(),
+            alpha=v() if m & 1 else None,
+            beta1=v() if m & 2 else None,
+            beta2=v() if m & 4 else None,
+            beta3=v() if m & 8 else None,
+            z=v() if m & 16 else None,
+            z2=v() if m & 32 else None,
+            proof=PointAddProof(v(), v(), v(), v(), mult(), mult(), mult(), mult(), equality(), equality())
+            if m & 64 else None,
+            r1=v() if m & 128 else None,
+            r2=v() if m & 256 else None,
+        ))
+    cl, ca, cb, cd, f, za, zb = (list(islice(vals, k)) for k in shape[1 + n :])
+    return SignatureProofList(R, comS1, keyXcom, keyYcom, rounds, GKProof(cl, ca, cb, cd, f, za, zb, v()))
+
+
 def read_json(cls: Type[T], text: str) -> T:
     """Parse + validate; raises on any invalid content (serde.ts:21-32).
+    A ``SignatureProofList`` goes to the native decoder first, and to the
+    Python path where it declines (see the module's docstring).
     While a tracer is installed (``utils.profiling.tracing``) it counts
-    ``serde.json_s``, the seconds in ``json.loads``, and ``serde.bytes``,
-    the text's length (the wire is ASCII): the decode and the checks of
-    every point are the rest of the call."""
-    if profiling.TRACER is None:
+    ``serde.bytes``, the text's length (the wire is ASCII); for a
+    ``SignatureProofList`` ``serde.native`` (a proof the native decoder
+    read, with ``serde.native_s``, the seconds of its call: the object
+    build is the rest) or ``serde.fallback`` (a proof the Python path
+    read); and on the Python path ``serde.json_s``, the seconds in
+    ``json.loads``: the decode and the checks of every point are the
+    rest of its call."""
+    traced = profiling.TRACER is not None
+    if cls is SignatureProofList:
+        t0 = time.perf_counter() if traced else 0.0
+        flat = native.read_proof(text)
+        if flat is not None:
+            if traced:
+                profiling.count("serde.native_s", time.perf_counter() - t0)
+                profiling.count("serde.native")
+                profiling.count("serde.bytes", len(text))
+            return _build_proof(*flat)
+        if traced:
+            profiling.count("serde.fallback")
+    if not traced:
         return from_json_dict(cls, json.loads(text))
     t0 = time.perf_counter()
     obj = json.loads(text)
