@@ -324,23 +324,65 @@ def test_os_source_counters_equal_a_counting_wrapper():
     assert 0 < t.counters[("draws", "rng.os_s")] < 1
 
 
-def test_rnd_draws_less_calls_are_the_tapes_rejections():
-    """``rnd.draws - rnd.calls`` equals the rejections found by replaying
-    the same ``DeterministicSource`` tape by hand; a seeded source is not
-    the OS's, so no ``rng.os_*`` counter moves."""
-    moduli = [2, 3, 5, 80, 129, 255, 256, 257, 2**31 - 1, 2**255 + 95] * 4
-    t = tprof.StageTimer()
-    with trng.scoped(trng.DeterministicSource(31337)), tprof.tracing(t):
-        got = [tbig.rnd(m) for m in moduli]
-    tape, rejected, want = trng.DeterministicSource(31337), 0, []
+class _NoSnapshot:
+    """A seeded source without ``state``/``restore``: ``rnd_many`` cannot
+    rewind it."""
+
+    def __init__(self, seed):
+        self.source = trng.DeterministicSource(seed)
+
+    def random_bytes(self, n):
+        return self.source.random_bytes(n)
+
+
+def _rnd_loop(tape, moduli):
+    """The sequential ``rnd`` loop by hand: its values and rejections."""
+    rejected, out = 0, []
     for m in moduli:
         k = tbig.byte_len(m)
         while (v := int.from_bytes(tape.random_bytes(k), "big")) >= m:
             rejected += 1
-        want.append(v)
-    assert got == want and rejected > 0
+        out.append(v)
+    return out, rejected
+
+
+_MIXED_WIDTHS = [2, 3, 5, 80, 129, 255, 256, 257, 2**31 - 1, 2**255 + 95] * 4
+_WIDE_ACCEPTED = [p256.order, 2**256 - 1] * 8  # 32 bytes, rejected ~2^-32
+_WIDE_REJECTED = [2**255 + 95] * 12  # 32 bytes, each draw rejected ~1 time in 2
+
+
+@pytest.mark.parametrize("draw, moduli", [
+    ("rnd", _MIXED_WIDTHS),
+    ("rnd_many", _MIXED_WIDTHS),  # mixed widths: the sequential loop
+    ("rnd_many", _WIDE_ACCEPTED),  # the accepting path
+    ("rnd_many", _WIDE_REJECTED),  # a rejection: the replay
+    ("rnd_many_no_snapshot", _WIDE_REJECTED),  # a rejection, no replay
+], ids=["rnd", "rnd_many-mixed", "rnd_many-accepted", "rnd_many-replay", "rnd_many-no-snapshot"])
+def test_rnd_draws_less_calls_are_the_tapes_rejections(draw, moduli):
+    """``rnd.draws - rnd.calls`` equals the rejections found by replaying
+    the same ``DeterministicSource`` tape by hand, and ``rnd.calls`` is a
+    modulus each, whether ``rnd`` or ``rnd_many`` draws: on its accepting
+    path, its replay after a rejection, and with a source it cannot rewind
+    (the draws after the rejected one then come anew, after its bulk
+    read); a seeded source is not the OS's, so no ``rng.os_*`` counter
+    moves."""
+    t = tprof.StageTimer()
+    src = _NoSnapshot(31337) if draw == "rnd_many_no_snapshot" else trng.DeterministicSource(31337)
+    with trng.scoped(src), tprof.tracing(t):
+        got = [tbig.rnd(m) for m in moduli] if draw == "rnd" else tbig.rnd_many(moduli)
+    tape = trng.DeterministicSource(31337)
+    if draw == "rnd_many_no_snapshot":
+        k = tbig.byte_len(moduli[0])
+        rows = [int.from_bytes(tape.random_bytes(k), "big") for _ in moduli]
+        i = next(i for i, (v, m) in enumerate(zip(rows, moduli)) if v >= m)
+        rest, rejected = _rnd_loop(tape, moduli[i:])
+        want, rejected = rows[:i] + rest, rejected + 1
+    else:
+        want, rejected = _rnd_loop(tape, moduli)
+    assert got == want and len(got) == len(moduli)
+    assert (rejected > 0) == (moduli is not _WIDE_ACCEPTED)
     assert t.counters[(None, "rnd.calls")] == len(moduli)
-    assert t.counters[(None, "rnd.draws")] - t.counters[(None, "rnd.calls")] == rejected
+    assert t.counters.get((None, "rnd.draws"), 0) - t.counters[(None, "rnd.calls")] == rejected
     assert not any(name.startswith("rng.os") for _, name in t.counters)
 
 

@@ -216,9 +216,11 @@ def test_mixed_batch_spans_and_counters(mixed, monkeypatch):
     the verifier's stages nest as they should under one call id, the
     per-row checks of the attribution pass inside ``msm.attribution``;
     the round sample's draws are counted in ``verify.host_prep`` (78
-    ``rnd`` calls a proof, the shuffle of 80 rounds); a seeded source
-    moves no OS counter.  Then, with no tracer, a verify adds no
-    collector callback and moves no tally."""
+    ``rnd`` calls a proof, the shuffle of 80 rounds); ``verify.assemble``
+    counts both proofs, 6 challenges a bit-0 round and an ``rnd`` call a
+    weight, one a relation (2n + 1 GK relations, 3 a sampled bit-1 round,
+    25 a bit-0 round); a seeded source moves no OS counter.  Then, with no
+    tracer, a verify adds no collector callback and moves no tally."""
     params, msgs, ring, jproofs = mixed
     monkeypatch.setattr(tbv, "_COMB_W", 64)
     port = tbv.BatchVerifier(carry.params_from_jax(jwrite_json(JParams, params)), device="cpu")
@@ -237,12 +239,34 @@ def test_mixed_batch_spans_and_counters(mixed, monkeypatch):
     assert all(sp.parent is None for sp in timer.spans if sp.name.startswith("verify."))
     assert all(by_id[sp.parent].name == "msm.attribution" for sp in timer.spans if sp.parent is not None)
     assert timer.counters[("verify.host_prep", "rnd.calls")] == 2 * 78
+    asm = {name: v for (span, name), v in timer.counters.items() if span == "verify.assemble"}
+    n = 2  # ring of 4
+    bit0 = asm["assemble.hashes"] // 6
+    assert asm["assemble.hashes"] == 6 * bit0 and 0 < bit0 < 2 * S
+    assert asm["assemble.proofs"] == 2
+    assert asm["rnd.calls"] == asm["rnd.draws"] == 2 * (2 * n + 1) + 3 * (2 * S - bit0) + 25 * bit0
     assert not any(name.startswith("rng.os") for _, name in timer.counters)
 
     before = list(gc.callbacks)
     assert port.verify(msgs, ring, tampered) == [True, False]
     assert gc.callbacks == before and tprofiling.TRACER is None
     assert all(not any(t.values) for t in tprofiling._tallies)
+
+
+def test_assembly_draws_its_weights_in_one_os_call(mixed, monkeypatch):
+    """Under the OS's source every weight of a batch comes from one call
+    inside ``verify.assemble``, and the verdicts stay."""
+    params, msgs, ring, jproofs = mixed
+    monkeypatch.setattr(tbv, "_COMB_W", 64)
+    port = tbv.BatchVerifier(carry.params_from_jax(jwrite_json(JParams, params)), device="cpu")
+    tampered = [_to_port(p) for p in jproofs]
+    tampered[1].membershipProof.f[0] = tampered[1].membershipProof.f[1]
+    timer = StageTimer("cpu")
+    with trng.scoped(trng.RandomSource()), tprofiling.tracing(timer):
+        assert port.verify(msgs, ring, tampered) == [True, False]
+    asm = {name: v for (span, name), v in timer.counters.items() if span == "verify.assemble"}
+    assert asm["rng.os_calls"] == 1
+    assert asm["rng.os_bytes"] == 32 * asm["rnd.calls"]
 
 
 @pytest.fixture

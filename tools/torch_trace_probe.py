@@ -11,7 +11,10 @@ batches - the wire parse, then ``BatchVerifier.verify`` - each under
 spans ``batch`` and ``serde``, with the port's default OS source wrapped to
 keep its calls and bytes.  Prints, a batch: its seconds, the stages' self
 seconds, every counter by span, whether ``rng.os_calls`` and
-``rng.os_bytes`` equal the wrapper's tallies, and the wire's split: the
+``rng.os_bytes`` equal the wrapper's tallies, the assembly's counters
+inside ``verify.assemble`` (``assemble.proofs``, ``assemble.hashes``, the
+weights as ``rnd.calls`` and the source calls for them as
+``rng.os_calls``), and the wire's split: the
 proofs the native decoder read (``serde.native``) against the Python
 path's (``serde.fallback``), and the ``serde`` span's self seconds as the
 native call (``serde.native_s``), ``json.loads`` (``serde.json_s``), the
@@ -192,17 +195,21 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t_b
         total = by_name(t.counters)
         same = total.get("rng.os_calls") == src.calls and total.get("rng.os_bytes") == src.bytes
+        asm = {name: v for (span, name), v in t.counters.items() if span == "verify.assemble"}
         rec = {
             "batch": b, "wall_s": wall, "rejected": ok.count(False), "self_s": t.self_s, "stages_s": t.stages,
             "counters": total, "counters_by_span": [[s, n, v] for (s, n), v in sorted(t.counters.items(),
                                                                                       key=lambda kv: (kv[0][0] or "", kv[0][1]))],
             "wrapper_calls": src.calls, "wrapper_bytes": src.bytes, "os_counts_equal_wrapper": same,
-            "wire": wire_split(t),
+            "wire": wire_split(t), "assembly_weights": asm.get("rnd.calls", 0),
         }
         out["batches"].append(rec)
         w = rec["wire"]
         print(f"# batch {b}: {wall:.4f} s, {ok.count(False)} rejected; os counters equal the wrapper's: {same} "
               f"({src.calls} calls, {src.bytes} bytes)", flush=True)
+        print(f"# assemble: {asm.get('assemble.proofs', 0)} proofs, {asm.get('rnd.calls', 0)} weights in "
+              f"{asm.get('rng.os_calls', 0)} OS calls ({asm.get('rng.os_s', 0.0):.4f} s), "
+              f"{asm.get('assemble.hashes', 0)} challenges", flush=True)
         print(f"# wire: {w['native']} of {w['native'] + w['fallback']} proofs native ({100 * w['native_share']:.1f}%); "
               f"serde {w['span_s']:.4f} s = native call {w['native_s']:.4f} + json.loads {w['json_s']:.4f} "
               f"+ collector {w['gc_s']:.4f} + object build {w['build_s']:.4f}", flush=True)
@@ -213,8 +220,10 @@ def main(argv=None) -> int:
     print(f"# untraced batch: {out['untraced_wall_s']:.4f} s", flush=True)
     cost = site_cost_ns()
     last = out["batches"][-1]["counters"]
-    sites = last.get("rng.os_calls", 0) + last.get("rnd.calls", 0) + mix.batch  # the OS source, rnd, read_json
-    attempts = last.get("rnd.draws", 0)
+    # the OS source, rnd, read_json; rnd_many tests once for all its weights
+    weights = out["batches"][-1]["assembly_weights"]
+    sites = last.get("rng.os_calls", 0) + last.get("rnd.calls", 0) - weights + mix.batch
+    attempts = last.get("rnd.draws", 0) - weights
     off_s = (sites * cost["tracer_test_ns"] + attempts * cost["attempt_count_ns"]) * 1e-9
     out["off_cost"] = dict(cost, sites=sites, attempts=attempts, seconds=off_s,
                            share_of_untraced_batch=off_s / out["untraced_wall_s"])

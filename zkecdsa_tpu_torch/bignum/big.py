@@ -196,54 +196,63 @@ def rnd_many(moduli, source=None) -> list[int]:
     rewound (deterministic sources expose state()/restore()) and the
     exact sequential loop replays; sources without snapshots fall back
     to sequential draws for the remainder (fresh entropy, no replay
-    contract to honor)."""
+    contract to honor).
+
+    Under a tracer it counts ``rnd.calls`` and ``rnd.draws`` as the
+    sequential loop would: a call and a draw a modulus on the accepting
+    path.  A replay is all ``rnd``'s to count; without a snapshot this
+    counts the accepted prefix and the rejected draw, and ``rnd`` the
+    rest."""
     import numpy as np
 
     src = source if source is not None else rng.get_source()
     moduli = list(moduli)
     if not moduli:
         return []
-    widths = [byte_len(m) for m in moduli]
-    k = widths[0]
-    if k < 8 or any(w != k for w in widths):
+    distinct = set(moduli)
+    k = byte_len(moduli[0])
+    if k < 8 or any(byte_len(m) != k for m in distinct):
         # mixed or tiny widths: no vectorized layout; sequential
         with rng.scoped(src):
             return [rnd(m) for m in moduli]
     snap_fn = getattr(src, "state", None)
     snap = snap_fn() if snap_fn is not None else None
     buf = src.random_bytes(k * len(moduli))
+    vals = [int.from_bytes(buf[i : i + k], "big") for i in range(0, len(buf), k)]
     rows = np.frombuffer(buf, np.uint8).reshape(len(moduli), k)
     # quick vectorized accept: value < m is certain when the leading
-    # 4 bytes are strictly below m's leading 4 bytes (both production
-    # moduli continue 0x00000001/0x00000000 after 0xFFFFFFFF, so
-    # equality is ~2^-32 per draw); candidates get the exact check
+    # 4 bytes are strictly below the leading 4 bytes of every modulus
+    # (both production moduli continue 0x00000001/0x00000000 after
+    # 0xFFFFFFFF, so equality is ~2^-32 per draw); candidates get the
+    # exact check
     heads = rows[:, :4].astype(np.uint32)
     head_val = (
         (heads[:, 0] << 24) | (heads[:, 1] << 16)
         | (heads[:, 2] << 8) | heads[:, 3]
     )
-    mheads = np.array(
-        [(m >> (8 * (k - 4))) & 0xFFFFFFFF for m in moduli], np.uint32
-    )
-    exact = np.nonzero(head_val >= mheads)[0]
-    rejected = any(
-        int.from_bytes(rows[i].tobytes(), "big") >= moduli[i] for i in exact
-    )
+    mhead = min((m >> (8 * (k - 4))) & 0xFFFFFFFF for m in distinct)
+    exact = np.nonzero(head_val >= mhead)[0]
+    rejected = any(vals[i] >= moduli[i] for i in exact)
     if not rejected:
-        return [int.from_bytes(r.tobytes(), "big") for r in rows]
+        if profiling.TRACER is not None:
+            v = _RND.values
+            v[0] += len(moduli)
+            v[1] += len(moduli)
+        return vals
     if snap is not None:
         src.restore(snap)
         with rng.scoped(src):
             return [rnd(m) for m in moduli]
     # non-replayable source: keep the accepted prefix, redraw the rest
-    out = []
     for i, m in enumerate(moduli):
-        v = int.from_bytes(rows[i].tobytes(), "big")
-        if v >= m:
+        if vals[i] >= m:
+            if profiling.TRACER is not None:
+                t = _RND.values
+                t[0] += i
+                t[1] += i + 1
             with rng.scoped(src):
-                return out + [rnd(mm) for mm in moduli[i:]]
-        out.append(v)
-    return out
+                return vals[:i] + [rnd(mm) for mm in moduli[i:]]
+    return vals
 
 
 def is_prime(n: int, iterations: int = 7) -> bool:

@@ -11,8 +11,8 @@ Phase structure:
   T = m*R as T = 1 rows of the Straus kernel, T1 = T + Q, one affine pass,
   and the bit-0 T1x/T1y coordinate commitments on the comb kernel;
 * device GK recombination (ring_fold, one kernel launch);
-* host: relation assembly (exact reference algebra) into one MultiMult per
-  (proof, curve);
+* host: relation assembly (exact reference algebra) into one MSM row per
+  (proof, curve), as flat integers over the batch (``batch_assemble``);
 * device MSM: one combined random-linear-combination check per curve on
   the Straus kernel, with per-row checks to attribute a failure.
 
@@ -42,9 +42,7 @@ import torch
 from ..bignum import big
 from ..curves.group import Group, Point, hash_points
 from ..curves.instances import p256
-from ..curves.multimult import MultiMult, Relation
 from ..exp.exp import generate_indices, padded_bits
-from ..exp.pointAdd import aggregate_point_add
 from ..ops.curve_ops import (
     byte_digits,
     comb_mixed,
@@ -67,8 +65,9 @@ from ..utils import profiling, rng
 from ..utils.config import get_config
 from ..utils.profiling import stages
 from ..zkp_attest_list import SignatureProofList, SystemParametersList, _truncate_to_n
-from .batch import _nist_pt, _pk_scalars, _tom_pt, _unp, device_params_for, mesh_device, resolve_device
-from .batch_gk import _ring_len, _ring_sharded, aggregate_membership, gk_recombine_device
+from .batch import _pk_scalars, _unp, device_params_for, mesh_device, resolve_device
+from .batch_assemble import assemble_rows
+from .batch_gk import _ring_len, _ring_sharded, gk_recombine_device
 
 __all__ = ["BatchVerifier", "batch_verify_signature_list", "vphase"]
 
@@ -482,38 +481,12 @@ class BatchVerifier:
                 tot_dev = gather(mesh, gk_recombine_device(mine(f_t), mine(xf_t), vals_t))
             totals = _unp(fo, tot_dev)
 
-        # ---- host: relation assembly per proof ----
+        # ---- host: the MSM rows, as flat integers over the batch ----
         with stage("verify.assemble"):
-            rows_w: list[tuple[list[Point], list[int]]] = []
-            rows_n: list[tuple[list[Point], list[int]]] = []
-            for i, proof in enumerate(proofs):
-                if not ok[i]:
-                    rows_w.append(([], []))
-                    rows_n.append(([], []))
-                    continue
-                multiW = MultiMult(pg.c)
-                multiW.add_known(pg.g)
-                multiW.add_known(pg.h)
-                multiN = MultiMult(p256)
-                multiN.add_known(proof.R)
-                multiN.add_known(params.nist_group.h)
-                multiN.add_known(proof.comS1)
-                aggregate_membership(
-                    pg, proof.keyXcom, n, proof.membershipProof, gk_x[i],
-                    totals[i], multiW,
-                )
-                if not self._aggregate_exp(
-                    proof, i, multiW, multiN,
-                    sel_idx[i], sel_bit[i],
-                    t0x, t0y, t0inf, sxs, sys_, cinf, comx, comy,
-                    pos0, pos1,
-                ):
-                    ok[i] = False
-                    rows_w.append(([], []))
-                    rows_n.append(([], []))
-                    continue
-                rows_w.append(multiW.pairs())
-                rows_n.append(multiN.pairs())
+            rows_w, rows_n = assemble_rows(
+                params, proofs, ok, n, gk_x, totals, sel_idx, sel_bit,
+                t0x, t0y, t0inf, sxs, sys_, cinf, comx, comy, pos0, pos1,
+            )
 
         # ---- device MSMs (one combined check per curve); stages msm.* ----
         t_w, t_n = self._t_static(n, S)
@@ -537,56 +510,6 @@ class BatchVerifier:
         t_n = 3 + 2 * S
         rnd8 = lambda v: -(-v // 8) * 8  # noqa: E731
         return rnd8(t_w), rnd8(t_n)
-
-    def _aggregate_exp(
-        self, proof, i, multiW, multiN,
-        idxs, bits, t0x, t0y, t0inf, sxs, sys_, cinf, comx, comy,
-        pos0, pos1,
-    ) -> bool:
-        """Exp relations for the sampled rounds, using the device-computed
-        points (exp.ts:263-346 algebra, host scalar arithmetic)."""
-        params = self.params
-        pg = params.proof_group
-        pi = proof.expProof
-        S = _verify_rounds()
-        one_n = p256.new_scalar(1)
-        one_w = pg.c.new_scalar(1)
-        h_n = params.nist_group.h
-        for j in range(S):
-            k = i * S + j
-            rp = pi[idxs[j]]
-            if cinf[i, j]:
-                return False  # T (or T1) at infinity
-            T = _nist_pt(t0x[k], t0y[k]) if not t0inf[i, j] else p256.identity()
-            if bits[j]:
-                k1 = pos1[i, j]  # bit-1 row in the masked coord arrays
-                sx = pg.c.new_scalar(sxs[k1])
-                sy = pg.c.new_scalar(sys_[k1])
-                relA = Relation(p256)
-                relA.insert_m([T, h_n, rp.A.neg()], [one_n, rp.beta1, one_n])
-                relA.drain(multiN)
-                relTx = Relation(pg.c)
-                relTx.insert_m([pg.g, pg.h, rp.Tx.neg()], [sx, rp.beta2, one_w])
-                relTx.drain(multiW)
-                relTy = Relation(pg.c)
-                relTy.insert_m([pg.g, pg.h, rp.Ty.neg()], [sy, rp.beta3, one_w])
-                relTy.drain(multiW)
-            else:
-                relA = Relation(p256)
-                relA.insert_m(
-                    [T, proof.comS1, rp.A.neg(), h_n],
-                    [one_n, one_n, one_n, rp.z2],
-                )
-                relA.drain(multiN)
-                k0 = pos0[i, j]  # bit-0 row in the masked commit arrays
-                T1x = _tom_pt(comx[k0 * 2], comy[k0 * 2])
-                T1y = _tom_pt(comx[k0 * 2 + 1], comy[k0 * 2 + 1])
-                if not aggregate_point_add(
-                    pg, T1x, T1y, proof.keyXcom, proof.keyYcom,
-                    rp.Tx, rp.Ty, rp.proof, multiW,
-                ):
-                    return False
-        return True
 
 
 def batch_verify_signature_list(
